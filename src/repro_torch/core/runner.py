@@ -76,23 +76,26 @@ def device_inputs(workload: Workload, device: str = "cuda"):
     return tuple(out)
 
 
+# Written before each timed call: more than the H100's 50 MB L2, so the
+# cache does not hold the call's operands from the previous repeat.
+_L2_FLUSH_BYTES = 64 << 20
+# Card cycles spun before the start event (``torch.cuda._sleep``): the host
+# has enqueued the call by the time the event is reached, so its launch cost
+# stays outside the timed window.
+_SPIN_CYCLES = 1_000_000
+
+
 class CardTimer:
     """Times calls on the card with CUDA events: warmup, then the minimum
-    over ``repeats``. Before each timed call it writes ``flush_bytes`` of
-    scratch memory, so the 50 MB L2 cache does not hold the call's operands
-    from the previous repeat, and then spins the card for ``spin_cycles``
-    (``torch.cuda._sleep``), so the host has enqueued the call before the
-    start event is reached and its launch cost stays outside the window."""
+    over ``repeats``, each after an L2 flush and a short spin of the card."""
 
-    def __init__(self, repeats: int = 10, warmup: int = 2,
-                 flush_bytes: int = 64 << 20, spin_cycles: int = 1_000_000):
+    def __init__(self, repeats: int = 10, warmup: int = 2):
         import torch
 
         if not torch.cuda.is_available():
             raise RuntimeError("CardTimer needs a CUDA device")
         self.repeats, self.warmup = repeats, warmup
-        self.spin_cycles = spin_cycles
-        self._flush = torch.empty(flush_bytes, dtype=torch.uint8,
+        self._flush = torch.empty(_L2_FLUSH_BYTES, dtype=torch.uint8,
                                   device="cuda")
 
     def __call__(self, fn: Callable, inputs) -> float:
@@ -104,7 +107,7 @@ class CardTimer:
         events = []
         for _ in range(self.repeats):
             self._flush.fill_(1)
-            torch.cuda._sleep(self.spin_cycles)
+            torch.cuda._sleep(_SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()

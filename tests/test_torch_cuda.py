@@ -15,6 +15,7 @@ from repro_torch.core import (H100, CudaRunner, Schedule, TuningDatabase,  # noq
                               concretize, kernel_params, tune)
 from repro_torch.core import workload as W  # noqa: E402
 from repro_torch.kernels._build import KernelLaunchError  # noqa: E402
+from repro_torch.kernels.matmul import ops as matmul_ops  # noqa: E402
 from repro_torch.kernels.matmul import plain as matmul_plain  # noqa: E402
 from repro_torch.kernels.matmul.kernel import matmul_blocked  # noqa: E402
 from repro_torch.kernels.qmatmul import plain as qmatmul_plain  # noqa: E402
@@ -95,6 +96,64 @@ def test_refused_launch_raises_refused(cuda):
         matmul_blocked(x, w, (16, 16, 4096))
     assert err.value.refused
     torch.cuda.synchronize()  # the context survived both
+
+
+_GATE_DTYPE = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+               torch.int8: "int8"}
+
+
+def _gate_boundary(limit, dtype):
+    """Blocks just inside and one step beyond one limit of the Python gate
+    (``matmul.ops.supports_block_shape`` at the H100's shared memory)."""
+    if limit == "micro_tile":
+        return (4, 4, 16), (6, 4, 16)
+    if limit == "threads":                       # (bm/4) * (bn/4) <= 1024
+        return (128, 128, 16), (132, 128, 16)
+    if limit == "dp4a":                          # int8 bk % 4
+        return (4, 4, 4), (4, 4, 6)
+    grain = 4 if dtype == torch.int8 else 1      # shared memory
+    bk = grain
+    while matmul_ops.supports_block_shape(16, 16, bk + grain,
+                                          _GATE_DTYPE[dtype],
+                                          H100.vmem_capacity):
+        bk += grain
+    return (16, 16, bk), (16, 16, bk + grain)
+
+
+@pytest.mark.parametrize("limit,dtype", [
+    (limit, dtype) for limit in ("micro_tile", "threads", "smem")
+    for dtype in (torch.float32, torch.bfloat16, torch.int8)
+] + [("dp4a", torch.int8)])
+@pytest.mark.parametrize("inside", [True, False], ids=["inside", "beyond"])
+def test_python_gate_matches_kernel_limits(cuda, limit, dtype, inside):
+    """The Python gate and the kernels' own checks (csrc/tile.cuh) agree on
+    both sides of every limit: a block the gate accepts launches and is
+    right, and one step beyond it the card refuses the launch."""
+    block = _gate_boundary(limit, dtype)[0 if inside else 1]
+    assert matmul_ops.supports_block_shape(
+        *block, _GATE_DTYPE[dtype], H100.vmem_capacity) is inside
+    x, w = _operands(*block, dtype, cuda)      # one block: (bm, bk) @ (bk, bn)
+    pairs = [(lambda: matmul_blocked(x, w, block),
+              lambda: matmul_plain.matmul_plain(x, w, block[2]))]
+    if dtype == torch.int8:
+        bias = torch.zeros(block[1], dtype=torch.int32, device=cuda)
+        pairs.append((lambda: qmatmul_blocked(x, w, bias, 0.01, block),
+                      lambda: qmatmul_plain.qmatmul_plain(x, w, bias, 0.01,
+                                                          block[2])))
+    for call, want in pairs:
+        if not inside:
+            with pytest.raises(KernelLaunchError) as err:
+                call()
+            assert err.value.refused
+            continue
+        got = call()
+        torch.cuda.synchronize()
+        if dtype == torch.int8:
+            assert torch.equal(got, want())
+        else:
+            rtol, atol = TOL[dtype]
+            torch.testing.assert_close(got, want(), rtol=rtol, atol=atol)
+    torch.cuda.synchronize()  # the context survived every refusal
 
 
 def test_launch_counts(cuda):
