@@ -5,23 +5,40 @@ The main path is the paper's tuning loop: a workload -> its design-space
 program -> concretized kernel parameters -> a CUDA kernel built from
 ``src/repro_torch/kernels/csrc`` -> timed on the card by ``CudaRunner`` ->
 ``tune`` (sampler, evolution, cost model) -> ``TuningDatabase`` ->
-``dispatch.kernel_params``. It runs at three workloads of the paper's
-networks, unreduced (``benchmarks/nets.py``):
+``dispatch.kernel_params``. Two paths drive it, each at the published
+widths, unreduced:
 
-  W1  qmatmul(3136, 64, 576)          ResNet18 stage-1 3x3 conv, int8 im2col
-  W2  qmatmul(64, 32000, 576)         MobileLLM-125M LM head, int8
-  W3  matmul(64, 1536, 576, bf16)     MobileLLM-125M gate/up projection
+- one operator at a time (``tune``), at three workloads of the paper's
+  networks (``benchmarks/nets.py``):
+
+    W1  qmatmul(3136, 64, 576)          ResNet18 stage-1 3x3 conv, int8 im2col
+    W2  qmatmul(64, 32000, 576)         MobileLLM-125M LM head, int8
+    W3  matmul(64, 1536, 576, bf16)     MobileLLM-125M gate/up projection
+
+- whole networks through ``TuningSession`` and ``ensure_tuned``:
+  MobileLLM-125M's batch-1 decode step (``runtime.serve_loop.decode_ops``:
+  five bf16 gemv workloads, the 32000 x 576 LM head among them) and
+  MobileNetV2 int8 at 224 x 224 (``repro_torch.nets.mobilenetv2``: 18
+  qmatmul and 6 vmacc workloads), the session interleaving measurement on
+  the card with search on the host (pipeline depth 2).
 
 Phases (any failure exits nonzero and prints no result line):
   1. the card, its power limit, and the kernels' build (ptxas report);
   2. each kernel against its plain PyTorch version on the same device
      tensors: qmatmul exact, f32 rtol 1e-4 / atol 1e-3 (another sum order),
-     bf16 outputs 5e-2; TF32 is off for the plain versions' products;
+     bf16 outputs 5e-2, vmacc 1e-5; TF32 is off for the plain versions'
+     products;
   3. tune W1-W3 (32 trials, seed 0) with launch counts zeroed just before
      and read just after; dispatch must then resolve "tuned" and the tuned
      kernel's output must equal the plain version's;
-  4. per kernel: launches on the main path, time, plain version's time,
-     library call's time and the card's bound, as one JSON line.
+  4. tune the two networks with launch counts zeroed just before and read
+     just after; every unique workload must then resolve "tuned" and its
+     tuned kernel's output equal the plain version's; per network the
+     tuned, fixed-library and library-call latencies (each the sum of
+     count x latency) and the session's overlap fraction;
+  5. per kernel: launches on the main paths (phases 3 and 4), time, plain
+     version's time, library call's time and the card's bound, as one JSON
+     line.
 The last line is {"ok": true, "device": {...}}.
 
 Run:  python3 chip_smoke.py      (needs one CUDA card and nvcc)
@@ -41,6 +58,27 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 TRIALS, SEED = 32, 0
+# Network phase budgets: trials per unique workload of each network.
+DECODE_TRIALS, MNV2_TRIALS = 32, 16
+SLICE1 = ("_acc_kernel", "_noacc_kernel", "_qmm_kernel")
+SLICE2 = ("_qmm_kernel", "_gemv_kernel", "_gemv_noacc_kernel",
+          "_vmacc_kernel")
+REPLACES = {
+    "_acc_kernel": "src/repro/kernels/matmul/kernel.py:25",
+    "_noacc_kernel": "src/repro/kernels/matmul/kernel.py:42",
+    "_qmm_kernel": "src/repro/kernels/qmatmul/kernel.py:25",
+    "_gemv_kernel": "src/repro/kernels/gemv/kernel.py:23",
+    "_gemv_noacc_kernel": "src/repro/kernels/gemv/kernel.py:38",
+    "_vmacc_kernel": "src/repro/kernels/vmacc/kernel.py:20",
+}
+SOURCE = {
+    "_acc_kernel": "src/repro_torch/kernels/csrc/matmul.cu",
+    "_noacc_kernel": "src/repro_torch/kernels/csrc/matmul.cu",
+    "_qmm_kernel": "src/repro_torch/kernels/csrc/qmatmul.cu",
+    "_gemv_kernel": "src/repro_torch/kernels/csrc/gemv.cu",
+    "_gemv_noacc_kernel": "src/repro_torch/kernels/csrc/gemv.cu",
+    "_vmacc_kernel": "src/repro_torch/kernels/csrc/vmacc.cu",
+}
 
 
 def phase(title: str) -> None:
@@ -63,20 +101,27 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
 
-    from repro_torch import kernels
+    from repro_torch import kernels, nets
+    from repro_torch.configs import get_config
     from repro_torch.core import (H100, CudaRunner, Schedule, TuningDatabase,
-                                  baseline_latency, concretize,
-                                  fixed_library_schedule, kernel_params, tune)
+                                  TuningSession, baseline_latency, concretize,
+                                  ensure_tuned, fixed_library_schedule,
+                                  kernel_params, tune)
     from repro_torch.core import workload as W
     from repro_torch.core.hardware import check_device
     from repro_torch.core.runner import CardTimer, device_inputs
     from repro_torch.kernels import _build
+    from repro_torch.kernels.gemv import plain as gemv_plain
+    from repro_torch.kernels.gemv.kernel import gemv_blocked
     from repro_torch.kernels.matmul import plain as mm_plain
     from repro_torch.kernels.matmul.kernel import matmul_blocked
     from repro_torch.kernels.matmul.ops import pad2
     from repro_torch.kernels.qmatmul import plain as qmm_plain
     from repro_torch.kernels.qmatmul.kernel import qmatmul_blocked
     from repro_torch.kernels.qmatmul.ops import DEFAULT_SCALE
+    from repro_torch.kernels.vmacc import plain as vmacc_plain
+    from repro_torch.kernels.vmacc.kernel import vmacc_blocked
+    from repro_torch.runtime.serve_loop import decode_ops
 
     # ---------------------------------------------------------------- 1 ----
     phase("1. card and build")
@@ -101,10 +146,12 @@ def main() -> int:
     wl2 = W.qmatmul(64, 32000, 576)
     wl3 = W.matmul(64, 1536, 576, "bfloat16")
     names = {wl1.key(): "W1", wl2.key(): "W2", wl3.key(): "W3"}
+    lm_head = W.gemv(32000, 576, "bfloat16")   # MobileLLM-125M decode
+    dw1 = W.vmacc(12544, 32)                   # MobileNetV2's first dw stage
 
     # ---------------------------------------------------------------- 2 ----
     phase("2. kernels against their plain versions (on the card)")
-    err = {"_acc_kernel": 0.0, "_noacc_kernel": 0.0, "_qmm_kernel": 0.0}
+    err = {name: 0.0 for name in REPLACES}
 
     def close(got, want, rtol, atol, what):
         got, want = got.double(), want.double()
@@ -148,6 +195,45 @@ def main() -> int:
               kernels.reference(wl)(x, w, b), 0.0, 0.0,
               f"  op {label} vs oracle")
 
+    def check_gemv(wl, decisions, label):
+        params = concretize(wl, H100, Schedule.fixed(**decisions))
+        if not params.valid:
+            raise RuntimeError(f"{label}: {params.why_invalid}")
+        x, w = device_inputs(wl)
+        pn, pk = params.padded_dims
+        xp, wp = pad2(x, 1, pk).contiguous(), pad2(w, pk, pn).contiguous()
+        got = gemv_blocked(xp, wp, params.block, params.accumulate)
+        torch.cuda.synchronize()
+        name = "_gemv_kernel" if params.accumulate else "_gemv_noacc_kernel"
+        # f32 output for both dtypes; bf16 products are exact in f32
+        rtol, atol = (5e-2, 5e-2) if wl.dtype == "bfloat16" else (1e-4, 1e-3)
+        d = close(got, gemv_plain.gemv_plain(xp, wp, params.block[1]), rtol,
+                  atol, f"{name} {label} {params.block} padded "
+                  f"{params.padded_dims}")
+        err[name] = max(err[name], d)
+        out = kernels.build(wl, params)(x, w)
+        if out.dtype != torch.float32:
+            raise RuntimeError(f"gemv {label} returned {out.dtype}")
+        close(out, kernels.reference(wl)(x, w), rtol, atol,
+              f"  op {label} vs oracle")
+
+    def check_vmacc(wl, decisions, label):
+        params = concretize(wl, H100, Schedule.fixed(**decisions))
+        if not params.valid:
+            raise RuntimeError(f"{label}: {params.why_invalid}")
+        a, b, c = device_inputs(wl)
+        pr, pc = params.padded_dims
+        ap, bp, cp = (pad2(t, pr, pc).contiguous() for t in (a, b, c))
+        got = vmacc_blocked(ap, bp, cp, params.block)
+        torch.cuda.synchronize()
+        d = close(got, vmacc_plain.vmacc_plain(ap, bp, cp), 1e-5, 1e-5,
+                  f"_vmacc_kernel {label} {params.block} padded "
+                  f"{params.padded_dims}")
+        err["_vmacc_kernel"] = max(err["_vmacc_kernel"], d)
+        close(kernels.build(wl, params)(a, b, c),
+              kernels.reference(wl)(a, b, c), 1e-5, 1e-5,
+              f"  op {label} vs oracle")
+
     wl3_f32 = W.matmul(64, 1536, 576, "float32")
     for wl, label in ((wl3_f32, "W3 f32"), (wl3, "W3 bf16")):
         check_matmul(wl, concretize(wl, H100, fixed_library_schedule(wl, H100)),
@@ -173,9 +259,30 @@ def main() -> int:
         variant="mxu_min", bm=16, bn=32, bk=32, order="mnk",
         accumulate=True)), f"odd {oddq.dims}")
 
+    check_gemv(lm_head, fixed_library_schedule(lm_head, H100).as_dict(),
+               "LM head (library schedule)")
+    for acc in (True, False):
+        check_gemv(lm_head, dict(variant="vl_128", bn=128, bk=64,
+                                 accumulate=acc), "LM head")
+        check_gemv(W.gemv(960, 576, "bfloat16"),
+                   dict(variant="j1", bn=1, bk=64, accumulate=acc), "QKV j1")
+        check_gemv(W.gemv(100, 300, "float32"),
+                   dict(variant="vl_16", bn=16, bk=64, accumulate=acc),
+                   "odd 100x300 f32")
+        check_gemv(W.gemv(1536, 576, "float32"),
+                   dict(variant="vl_128", bn=128, bk=96, accumulate=acc),
+                   "up f32")
+    check_vmacc(dw1, fixed_library_schedule(dw1, H100).as_dict(),
+                "dw1 (library schedule)")
+    check_vmacc(dw1, dict(variant="vl_16x128", br=16, bc=16), "dw1")
+    odd_dw = W.vmacc(49, 960)
+    check_vmacc(odd_dw, dict(variant="vl_min", br=16, bc=80), "odd 49x960")
+    check_vmacc(odd_dw, dict(variant="vl_32x128", br=32, bc=128),
+                "odd 49x960")
+
     # ---------------------------------------------------------------- 3 ----
-    phase(f"3. main path: tune W1-W3 ({TRIALS} trials, seed {SEED}), "
-          f"database, dispatch")
+    phase(f"3. main path, one operator: tune W1-W3 ({TRIALS} trials, seed "
+          f"{SEED}), database, dispatch")
     runner = CudaRunner(H100)
     db = TuningDatabase()
     results = {}
@@ -188,8 +295,8 @@ def main() -> int:
         out = kernels.build(wl, params)(*inputs)
         torch.cuda.synchronize()
         results[wl.key()] = (res, params, provenance, out, t_fixed)
-    launches = kernels.launch_counts()
-    print(f"launches on the main path: {launches}")
+    launches3 = kernels.launch_counts()
+    print(f"launches on the one-operator path: {launches3}")
 
     for wl in (wl1, wl2, wl3):
         res, params, provenance, out, t_fixed = results[wl.key()]
@@ -217,71 +324,174 @@ def main() -> int:
                                          params.block[2])
             close(out, want[:wl.dims[0], :wl.dims[1]].to(out.dtype), 5e-2,
                   5e-1, f"  tuned {names[wl.key()]} vs plain")
-    for name, n in launches.items():
-        if n == 0:
-            raise RuntimeError(f"{name} was not launched on the main path")
+    for name in SLICE1:
+        if launches3[name] == 0:
+            raise RuntimeError(f"{name} was not launched on the one-operator "
+                               f"path")
 
     # ---------------------------------------------------------------- 4 ----
-    phase("4. kernel times at the main path's shapes")
+    phase(f"4. main path, whole networks: MobileLLM-125M batch-1 decode "
+          f"(ensure_tuned, {DECODE_TRIALS} trials per workload) and "
+          f"MobileNetV2 int8 (TuningSession, depth 2, {MNV2_TRIALS} trials "
+          f"per workload), seed {SEED}")
+    net_db = TuningDatabase()
+    decode = decode_ops(get_config("mobilellm_125m"), 1)
+    mnv2 = nets.mobilenetv2("int8")
+    kernels.reset_launch_counts()
+    sessions = {
+        "mobilellm_125m decode": ensure_tuned(
+            decode, H100, runner, database=net_db,
+            trials_per_workload=DECODE_TRIALS, seed=SEED,
+            model="mobilellm_125m-decode-b1"),
+    }
+    n_mnv2 = len({wl.key() for _, wl in mnv2})
+    sessions["mobilenetv2 int8"] = TuningSession(
+        H100, runner, database=net_db, pipeline_depth=2).tune_model(
+            mnv2, total_trials=MNV2_TRIALS * n_mnv2, seed=SEED,
+            model="mobilenetv2-int8")
+    launches4 = kernels.launch_counts()
+    print(f"launches on the network path: {launches4}")
+
+    for net, res in sessions.items():
+        t_lib = 0.0
+        for rep in res.reports:
+            wl = rep.workload
+            params, provenance = kernel_params(wl, H100, database=net_db)
+            if provenance != "tuned":
+                raise RuntimeError(f"{wl.key()}: dispatch resolved "
+                                   f"{provenance}")
+            inputs = runner.inputs(wl)
+            got = kernels.build(wl, params)(*inputs)
+            # the plain version of the same schedule, on host copies
+            want = kernels.build(wl, params, device="cpu")(
+                *(t.cpu() for t in inputs))
+            if wl.op == "qmatmul":
+                rtol, atol = 0.0, 0.0
+            elif wl.op == "vmacc":
+                rtol, atol = 1e-5, 1e-5
+            else:
+                rtol, atol = 5e-2, 5e-2
+            close(got.cpu(), want, rtol, atol,
+                  f"  tuned x{rep.count} {wl.key()} {params.block} vs plain")
+            lib = baseline_latency(wl)
+            t_lib += rep.count * lib
+            print(f"    x{rep.count}: tuned {rep.best_latency*1e6:.2f} us, "
+                  f"fixed library {rep.fixed_latency*1e6:.2f} us, library "
+                  f"call {lib*1e6:.2f} us, {rep.trials} trials")
+        print(f"  {net}: {len(res.reports)} unique workloads, "
+              f"{res.total_trials} trials, interleaved {res.interleaved} "
+              f"(depth {res.pipeline_depth}); tuned "
+              f"{res.tuned_latency*1e6:.2f} us, fixed library "
+              f"{res.fixed_latency*1e6:.2f} us, library call "
+              f"{t_lib*1e6:.2f} us (each the sum of count x latency); "
+              f"overlap fraction {res.overlap_fraction:.4f}; wall "
+              f"{res.wall_time_s:.1f} s")
+    for name in SLICE2:
+        if launches4[name] == 0:
+            raise RuntimeError(f"{name} was not launched on the network path")
+    launches = {name: launches3[name] + launches4[name] for name in REPLACES}
+
+    # ---------------------------------------------------------------- 5 ----
+    phase("5. kernel times at the main paths' shapes")
     timer = CardTimer(repeats=20, warmup=3)
 
-    def best_of(wl, accumulate=None):
-        hist = [(lat, s) for s, lat in results[wl.key()][0].history
-                if lat < float("inf")]
+    def measured(wl, history, accumulate=None):
+        """The fastest measured schedule of ``history`` ((schedule,
+        latency) pairs), optionally of one accumulate choice."""
+        hist = [(lat, s) for s, lat in history if lat < float("inf")]
         if accumulate is not None:
             hist = [(lat, s) for lat, s in hist
                     if concretize(wl, H100, s).accumulate == accumulate]
+        if not hist:
+            raise RuntimeError(f"{wl.key()}: no measured schedule with "
+                               f"accumulate={accumulate}")
         return concretize(wl, H100, min(hist, key=lambda r: r[0])[1])
+
+    def best_of(wl, accumulate=None):
+        return measured(wl, results[wl.key()][0].history, accumulate)
+
+    def net_best_of(wl, accumulate=None):
+        return measured(wl, [(Schedule.from_json(r["schedule"]),
+                              r["latency_s"])
+                             for r in net_db.history(wl, H100.name)],
+                        accumulate)
 
     rows = []
 
-    def row(name, wl, params):
+    def row(name, wl, params, label):
         x = runner.inputs(wl)
-        pm, pn, pk = params.padded_dims
-        xp = pad2(x[0], pm, pk).contiguous()
-        wp = pad2(x[1], pk, pn).contiguous()
-        ops = 2.0 * pm * pn * pk
-        if wl.op == "qmatmul":
-            bp = torch.nn.functional.pad(x[2], (0, pn - x[2].shape[0]))
-            args = (xp, wp, bp, DEFAULT_SCALE, params.block)
-            kern, plain_fn = qmatmul_blocked, (
-                lambda *a: qmm_plain.qmatmul_plain(*a[:4], params.block[2]))
-            bound, by = bound_ms((xp, wp, bp), kern(*args), ops, "int8")
+        if wl.op == "vmacc":
+            pr, pc = params.padded_dims
+            ap, bp, cp = (pad2(t, pr, pc).contiguous() for t in x)
+            args = (ap, bp, cp, params.block)
+            kern = vmacc_blocked
+            plain_fn = lambda *a: vmacc_plain.vmacc_plain(*a[:3])  # noqa: E731
+            bound, by = bound_ms((ap, bp, cp), kern(*args), 2.0 * pr * pc,
+                                 wl.dtype)
+        elif wl.op == "gemv":
+            pn, pk = params.padded_dims
+            xp, wp = pad2(x[0], 1, pk).contiguous(), pad2(x[1], pk, pn).contiguous()
+            args = (xp, wp, params.block, params.accumulate)
+            kern = gemv_blocked
+            plain_fn = lambda *a: gemv_plain.gemv_plain(  # noqa: E731
+                a[0], a[1], params.block[1])
+            bound, by = bound_ms((xp, wp), kern(*args), 2.0 * pn * pk,
+                                 wl.dtype)
         else:
-            args = (xp, wp, params.block, params.order, params.accumulate)
-            kern, plain_fn = matmul_blocked, (
-                lambda *a: mm_plain.matmul_plain(a[0], a[1], params.block[2]))
-            bound, by = bound_ms((xp, wp), kern(*args), ops, wl.dtype)
-        r = {"name": name, "route": "cuda",
-             "source": ("src/repro_torch/kernels/csrc/qmatmul.cu"
-                        if wl.op == "qmatmul"
-                        else "src/repro_torch/kernels/csrc/matmul.cu"),
-             "replaces": {"_acc_kernel": "src/repro/kernels/matmul/kernel.py:25",
-                          "_noacc_kernel": "src/repro/kernels/matmul/kernel.py:42",
-                          "_qmm_kernel": "src/repro/kernels/qmatmul/kernel.py:25"}[name],
+            pm, pn, pk = params.padded_dims
+            xp = pad2(x[0], pm, pk).contiguous()
+            wp = pad2(x[1], pk, pn).contiguous()
+            ops = 2.0 * pm * pn * pk
+            if wl.op == "qmatmul":
+                bp = torch.nn.functional.pad(x[2], (0, pn - x[2].shape[0]))
+                args = (xp, wp, bp, DEFAULT_SCALE, params.block)
+                kern, plain_fn = qmatmul_blocked, (
+                    lambda *a: qmm_plain.qmatmul_plain(*a[:4],
+                                                       params.block[2]))
+                bound, by = bound_ms((xp, wp, bp), kern(*args), ops, "int8")
+            else:
+                args = (xp, wp, params.block, params.order,
+                        params.accumulate)
+                kern, plain_fn = matmul_blocked, (
+                    lambda *a: mm_plain.matmul_plain(a[0], a[1],
+                                                     params.block[2]))
+                bound, by = bound_ms((xp, wp), kern(*args), ops, wl.dtype)
+        r = {"name": name, "route": "cuda", "source": SOURCE[name],
+             "replaces": REPLACES[name],
              "launches": launches[name], "max_abs_err": err[name],
              "ms": timer(kern, args) * 1e3,
              "plain_ms": timer(plain_fn, args) * 1e3,
              "bound_ms": bound, "bound_by": by,
              "library_ms": timer(kernels.baseline(wl), x) * 1e3,
-             "workload": names[wl.key()], "block": list(params.block)}
+             "workload": label, "block": list(params.block)}
         rows.append(r)
-        print(f"  {name} {r['workload']} block {params.block}: kernel "
+        print(f"  {name} {label} block {params.block}: kernel "
               f"{r['ms']*1e3:.2f} us, plain {r['plain_ms']*1e3:.2f} us, "
               f"library {r['library_ms']*1e3:.2f} us, bound "
               f"{r['bound_ms']*1e3:.3f} us ({by})")
         return r
 
-    acc3 = row("_acc_kernel", wl3, best_of(wl3, accumulate=True))
-    noacc3 = row("_noacc_kernel", wl3, best_of(wl3, accumulate=False))
-    row("_qmm_kernel", wl1, best_of(wl1))
-    qmm2 = row("_qmm_kernel", wl2, best_of(wl2))
+    acc3 = row("_acc_kernel", wl3, best_of(wl3, accumulate=True), "W3")
+    noacc3 = row("_noacc_kernel", wl3, best_of(wl3, accumulate=False), "W3")
+    row("_qmm_kernel", wl1, best_of(wl1), "W1")
+    qmm2 = row("_qmm_kernel", wl2, best_of(wl2), "W2")
+    gemv_acc = row("_gemv_kernel", lm_head,
+                   net_best_of(lm_head, accumulate=True), "LM head")
+    try:
+        noacc_params = net_best_of(lm_head, accumulate=False)
+    except RuntimeError as exc:   # the session measured no noacc LM head
+        noacc_params = concretize(lm_head, H100, Schedule.fixed(
+            variant="vl_128", bn=128, bk=64, accumulate=False))
+        print(f"  {exc}; timing the block {noacc_params.block}")
+    gemv_noacc = row("_gemv_noacc_kernel", lm_head, noacc_params, "LM head")
+    vmacc_row = row("_vmacc_kernel", dw1, net_best_of(dw1), "dw1")
     print("rows " + json.dumps(rows))
     print(card_line)
     strip = ("workload", "block")
     print(json.dumps({"kernels": [{k: v for k, v in r.items()
                                    if k not in strip}
-                                  for r in (acc3, noacc3, qmm2)]}))
+                                  for r in (acc3, noacc3, qmm2, gemv_acc,
+                                            gemv_noacc, vmacc_row)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,8 +3,8 @@ PyTorch and CUDA.
 
 Public API:
     Workload, Schedule, HardwareConfig / H100, tune(), TuningDatabase,
-    CudaRunner / EmulateRunner / AnalyticRunner, best_schedule() /
-    kernel_params().
+    CudaRunner / EmulateRunner / AnalyticRunner, MeasureScheduler,
+    TuningSession, best_schedule() / kernel_params() / ensure_tuned().
 """
 
 from repro_torch.core.hardware import (CPU_EMULATE, H100, INTERPRET, SWEEP,
@@ -35,8 +35,16 @@ from repro_torch.core.runner import (AnalyticRunner, CudaRunner,
 from repro_torch.core.database import (TuningDatabase, default_db_path,
                                        global_database,
                                        reset_global_database)
+from repro_torch.core.measure_scheduler import (AdaptiveDepthPolicy,
+                                                MeasureScheduler,
+                                                MeasureTicket,
+                                                SerialMeasureQueue)
 from repro_torch.core.tuner import tune, TuneDriver, TuneResult
-from repro_torch.core.dispatch import (best_schedule,
+from repro_torch.core.session import (BudgetLedger, EntropyStopPolicy,
+                                      TuningSession, SessionResult,
+                                      WorkloadReport, dedup_workloads,
+                                      split_budget)
+from repro_torch.core.dispatch import (best_schedule, ensure_tuned,
                                        fixed_library_schedule,
                                        invalidate_dispatch_caches,
                                        kernel_params)
@@ -52,8 +60,12 @@ __all__ = [
     "v1_distinct_configs", "TraceSampler", "Diagnostic", "SpaceReport",
     "analyze", "lint_space", "pruned_program", "RidgeCostModel", "features",
     "pretrain_from_database", "CudaRunner", "EmulateRunner", "AnalyticRunner",
-    "baseline_latency", "run_batch", "TuningDatabase", "default_db_path",
-    "global_database", "reset_global_database", "tune", "TuneDriver",
-    "TuneResult", "best_schedule", "fixed_library_schedule",
-    "invalidate_dispatch_caches", "kernel_params",
+    "baseline_latency", "run_batch", "AdaptiveDepthPolicy",
+    "MeasureScheduler", "MeasureTicket", "SerialMeasureQueue",
+    "TuningDatabase", "default_db_path", "global_database",
+    "reset_global_database", "tune", "TuneDriver", "TuneResult",
+    "BudgetLedger", "EntropyStopPolicy", "TuningSession", "SessionResult",
+    "WorkloadReport", "dedup_workloads", "split_budget", "best_schedule",
+    "ensure_tuned", "fixed_library_schedule", "invalidate_dispatch_caches",
+    "kernel_params",
 ]

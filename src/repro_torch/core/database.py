@@ -10,8 +10,7 @@ Beyond exact lookups the database answers *transfer* queries
 (:meth:`transfer_candidates`): the best schedules recorded for the same op
 family on other shapes or hardware configs, used to warm-start new searches
 (the paper's Fig. 4 schedule-transfer experiment), and stores session-level
-latency/speedup summaries from a tuning session (the JAX package's
-``TuningSession``; not ported yet).
+latency/speedup summaries from :class:`repro_torch.core.session.TuningSession`.
 
 Searches also persist their **learned proposal posteriors** (the per-decision
 :class:`~repro_torch.core.space.DecisionDistribution` evidence, serialized under an
@@ -447,10 +446,11 @@ class TuningDatabase:
     def _static_report_for_key(self, key: str):
         """Feasibility report for a record key's *own* (workload, hardware)
         space, or None when one can't be built (unknown hardware name, an
-        op whose design space is not ported, malformed workload JSON) —
-        verification is then skipped rather than guessed, so records the
-        JAX package wrote for ops or hardware this package cannot analyse
-        keep loading untouched."""
+        op whose design space is not ported — ``space.UNPORTED_OPS``,
+        attention only — malformed workload JSON) — verification is then
+        skipped rather than guessed, so records the JAX package wrote for
+        ops or hardware this package cannot analyse keep loading
+        untouched. gemv and vmacc records are analysed like matmul's."""
         wl_json = self.workloads.get(key)
         if wl_json is None or "@" not in key:
             return None

@@ -14,9 +14,13 @@ Every tensor op resolves its kernel schedule through a four-rung chain
                 the JAX package's XLA rung; provenance stays ``"xla"`` so
                 records and reports read alike in both packages).
 
-The hardware defaults to :data:`~repro_torch.core.hardware.H100`. The JAX
-package also records every miss into a traffic log for continuous tuning;
-that layer is not ported yet, so this dispatch has no tuning-side effects.
+The hardware defaults to :data:`~repro_torch.core.hardware.H100`.
+:func:`ensure_tuned` pre-tunes a whole model config (a network of
+:mod:`repro_torch.nets`, or ``runtime.serve_loop.decode_ops``) through a
+:class:`~repro_torch.core.session.TuningSession`, so that every op resolves
+``"tuned"``. The JAX package also records every miss into a traffic log for
+continuous tuning; that layer is not ported yet, so resolving has no
+tuning-side effects.
 
 Every rung is memoized per ``(workload.key(), hw.name)``: tuned and
 bucketed lookups through the caches on :class:`TuningDatabase` (invalidated
@@ -32,7 +36,7 @@ from __future__ import annotations
 
 from repro_torch.core import space as space_lib
 from repro_torch.core.database import TuningDatabase, global_database
-from repro_torch.core.hardware import H100, HardwareConfig
+from repro_torch.core.hardware import H100, CudaHardwareConfig, HardwareConfig
 from repro_torch.core.schedule import Schedule
 from repro_torch.core.workload import Workload
 
@@ -139,3 +143,41 @@ def kernel_params(workload: Workload, hw: HardwareConfig = H100,
     if sched is None:
         return None, provenance
     return space_lib.concretize(workload, hw, sched), provenance
+
+
+def ensure_tuned(ops, hw: HardwareConfig = H100,
+                 runner=None, database: TuningDatabase | None = None,
+                 trials_per_workload: int = 32, seed: int = 0,
+                 log=None, model: str = ""):
+    """Fill the dispatch database for a whole model config.
+
+    Runs a :class:`~repro_torch.core.session.TuningSession` over the
+    workloads of ``ops`` (``[(count, Workload), ...]``) that have **no**
+    tuned record yet, so every subsequent :func:`best_schedule` call for
+    them resolves to ``"tuned"``. Already-covered workloads are not
+    re-tuned — calling this before serving a model is idempotent and cheap
+    on a warm database.
+
+    The default runner measures where the config says the kernels run:
+    ``CudaRunner(hw)`` on the card for a :class:`CudaHardwareConfig`
+    (raising without one; no CPU fallback), the analytic model for a TPU
+    config, as in the JAX package.
+
+    Returns the :class:`SessionResult`, or ``None`` if the database already
+    covers every workload.
+    """
+    from repro_torch.core.runner import AnalyticRunner, CudaRunner
+    from repro_torch.core.session import TuningSession, dedup_workloads
+
+    db = database if database is not None else global_database()
+    missing = [(count, wl) for count, wl in dedup_workloads(ops)
+               if db.best(wl, hw.name) is None]
+    if not missing:
+        return None
+    if runner is None:
+        runner = (CudaRunner(hw) if isinstance(hw, CudaHardwareConfig)
+                  else AnalyticRunner(hw))
+    session = TuningSession(hw, runner, database=db, log=log)
+    return session.tune_model(missing,
+                              total_trials=trials_per_workload * len(missing),
+                              seed=seed, model=model)

@@ -9,9 +9,15 @@
   model, copied unchanged (its parity tests hold the port to the reference
   bit for bit). An H100 roofline is later work.
 
-All satisfy the same ``Runner`` protocol; ``tuner.tune`` is agnostic. None
-of them overlaps measurement with search yet (``tune`` runs at pipeline
-depth 1 in this slice of the port).
+All satisfy the same ``Runner`` protocol; ``tuner.tune`` is agnostic. The
+``overlap_capable`` class attribute tells the tuner whether measurement on
+this runner takes real time worth hiding behind search: the CUDA and
+emulate runners declare it, so ``tune(pipeline_depth > 1)`` and
+``TuningSession`` evolve the next generation while the
+:class:`~repro_torch.core.measure_scheduler.MeasureScheduler`'s measurement
+thread times the current one; the analytic model does not, and is clamped
+to the synchronous loop. ``max_inflight`` is how many submitted batches can
+make progress at once: 1 for each of them (one card, one host).
 
 Kernel builds go through the process-wide
 :class:`~repro_torch.core.build_cache.BuildCache`, keyed by
@@ -134,6 +140,10 @@ class CudaRunner:
     repeats: int = 10
     warmup: int = 2
     name: str = "cuda"
+    # Real measurement on the card: the tuner may pipeline search behind it.
+    overlap_capable = True
+    # One card: submitted batches are measured one at a time.
+    max_inflight = 1
 
     def __post_init__(self):
         from repro_torch.core.hardware import CudaHardwareConfig, check_device
@@ -195,6 +205,9 @@ class EmulateRunner:
     repeats: int = 3
     warmup: int = 1
     name: str = "emulate"
+    # Real wall-clock measurement, as the JAX package's InterpretRunner.
+    overlap_capable = True
+    max_inflight = 1
 
     def run(self, workload: Workload, schedule: Schedule) -> float:
         from repro_torch import kernels
@@ -228,6 +241,10 @@ class AnalyticRunner:
     # a deterministic function of the concretized params, so dedup-on is
     # identical to dedup-off.
     dedup: bool = False
+    # Instantaneous measurement: nothing for the tuner pipeline to hide
+    # behind, so the tuner clamps the pipeline depth to 1 for this runner.
+    overlap_capable = False
+    max_inflight = 1
 
     def run(self, workload: Workload, schedule: Schedule) -> float:
         params = space_lib.concretize(workload, self.hw, schedule)

@@ -164,17 +164,30 @@ def postproc_block_alignment(workload: Workload, hw: HardwareConfig,
 def postproc_kernel_support(workload: Workload, hw: HardwareConfig,
                             params: KernelParams) -> str:
     """On a CUDA config, the block must be one the port's kernel can launch
-    (``supports_block_shape``: register accumulator, shared memory, dp4a
-    depth), so an unlaunchable tile is an invalid candidate, not a crash.
-    A no-op on every other config."""
-    if not isinstance(hw, CudaHardwareConfig) \
-            or params.op not in ("matmul", "qmatmul"):
+    (each kernel package's ``ops.supports_block_shape``: register
+    accumulator, threads per block, shared memory, dp4a depth), so an
+    unlaunchable tile is an invalid candidate, not a crash. A no-op on
+    every other config."""
+    if not isinstance(hw, CudaHardwareConfig):
         return ""
-    from repro_torch.kernels.matmul import ops as matmul_ops  # lazy: no cycle
+    ok = True
+    if params.op in ("matmul", "qmatmul"):
+        from repro_torch.kernels.matmul import ops as matmul_ops  # lazy
 
-    bm, bn, bk = params.block
-    if not matmul_ops.supports_block_shape(bm, bn, bk, params.dtype,
-                                           hw.vmem_capacity):
+        ok = matmul_ops.supports_block_shape(*params.block, params.dtype,
+                                             hw.vmem_capacity)
+    elif params.op == "gemv":
+        from repro_torch.kernels.gemv import ops as gemv_ops  # lazy
+
+        ok = gemv_ops.supports_block_shape(
+            *params.block, hw.lane_align(params.dtype))
+    elif params.op == "vmacc":
+        from repro_torch.kernels.vmacc import ops as vmacc_ops  # lazy
+
+        ok = vmacc_ops.supports_block_shape(
+            *params.block, hw.sublane_align(params.dtype),
+            hw.lane_align(params.dtype))
+    if not ok:
         return f"block {params.block} not launchable by the CUDA kernel"
     return ""
 
@@ -651,7 +664,7 @@ def _scaled(base: int, scale: float, align: int, cap: int) -> int:
 
 # Op families whose kernels are not ported yet: no design space, since their
 # tile splits gate on kernels that do not exist here.
-UNPORTED_OPS = ("gemv", "vmacc", "attention")
+UNPORTED_OPS = ("attention",)
 
 
 def space_for(workload: Workload, hw: HardwareConfig) -> SpaceProgram:
@@ -698,6 +711,73 @@ def space_for(workload: Workload, hw: HardwareConfig) -> SpaceProgram:
                 "accumulate",
                 lambda ctx: ((True,) if round_up(k, ctx["bk"]) == ctx["bk"]
                              else (True, False))),
+        ]
+    elif workload.op == "gemv":
+        n, k = workload.dims
+
+        def bn_candidates(ctx):
+            """Output-row (J) split: any perfect tile of the padded n
+            extent the kernel can actually lower — gated by the kernel's
+            own block-shape capability (``supports_block_shape``), up to
+            8x the variant's base rows. The J=1 fallback variant stays a
+            single-row kernel (its whole point), as does a single-row
+            workload (n = 1, what the v1 path produced for it)."""
+            from repro_torch.kernels.gemv import ops as gemv_ops  # lazy
+
+            base_bn = block(ctx)[0]
+            if base_bn <= 1 or n <= 1:
+                return (1,)
+            cands = tuple(
+                c for c in tile_candidates(n, lane, 8 * base_bn)
+                if gemv_ops.supports_block_shape(c, ctx["bk"], lane))
+            return cands or (base_bn,)
+
+        def legacy_bn(trace, ctx):
+            """v1 traces never split bn: reproduce the variant-derived
+            value the legacy concretize path computes, bit-identically —
+            including its min(base, n) clamp (n = 1 must stay bn = 1)."""
+            base_bn = block(ctx)[0]
+            if base_bn <= 1 or min(base_bn, n) <= 1:
+                return 1
+            return _scaled(base_bn, 1.0, min(lane, base_bn), n)
+
+        ins += [
+            sample_tile_split(
+                "bk", lambda ctx: tile_candidates(k, lane, block(ctx)[1]),
+                legacy=legacy_tile("k_scale", 1, k, lane)),
+            sample_tile_split("bn", bn_candidates, legacy=legacy_bn),
+            sample_categorical(
+                "accumulate",
+                lambda ctx: ((True,) if round_up(k, ctx["bk"]) == ctx["bk"]
+                             else (True, False))),
+        ]
+    elif workload.op == "vmacc":
+        r, c = workload.dims
+
+        def bc_candidates(ctx):
+            """Column split: any perfect tile of the padded c extent the
+            kernel can actually lower — gated by the kernel's own
+            block-shape capability (``supports_block_shape``), capped at
+            the variant's base columns."""
+            from repro_torch.kernels.vmacc import ops as vmacc_ops  # lazy
+
+            base_bc = block(ctx)[1]
+            cands = tuple(
+                cc for cc in tile_candidates(c, lane, base_bc)
+                if vmacc_ops.supports_block_shape(ctx["br"], cc, sub, lane))
+            return cands or (_scaled(base_bc, 1.0, lane, c),)
+
+        def legacy_bc(trace, ctx):
+            """v1 traces never split bc: reproduce the variant-derived value
+            the legacy concretize path computes, bit-identically (it is the
+            1.0 SCALES anchor tile_candidates embeds, so always present)."""
+            return _scaled(block(ctx)[1], 1.0, lane, c)
+
+        ins += [
+            sample_tile_split(
+                "br", lambda ctx: tile_candidates(r, sub, block(ctx)[0]),
+                legacy=legacy_tile("r_scale", 0, r, sub)),
+            sample_tile_split("bc", bc_candidates, legacy=legacy_bc),
         ]
     else:
         raise ValueError(f"unknown op {workload.op}")

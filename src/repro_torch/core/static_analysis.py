@@ -38,9 +38,9 @@ Three layers consume the report:
 - :class:`~repro_torch.core.database.TuningDatabase` verifies incoming traces
   against the feasible table and quarantines stale ones instead of warm-
   starting searches from garbage;
-- in the JAX package, the board farm and the measurement scheduler (not
-  ported yet) refuse to ship statically-invalid work, settling it as
-  ``INVALID`` without burning a board slot.
+- the :class:`~repro_torch.core.measure_scheduler.MeasureScheduler`
+  refuses to ship statically-invalid work, settling it as ``INVALID``
+  without occupying the measurement thread.
 
 The dynamic postprocessors stay the ground truth: ``--suite static`` and
 the property tests assert the analyzer's verdicts agree with exhaustive
@@ -59,7 +59,7 @@ from repro_torch.core.hardware import (HardwareConfig, V5E, V5E_MXU256, V5E_VMEM
                                  V5E_VMEM64)
 from repro_torch.core.schedule import Schedule
 from repro_torch.core.space import SpaceProgram
-from repro_torch.core.workload import Workload
+from repro_torch.core.workload import Workload, dtype_bytes
 
 # Lint rules over the space definition (Diagnostic.rule values).
 RULE_EMPTY = "empty-feasible-set"
@@ -191,17 +191,32 @@ def _variant_vmem_floor(workload: Workload, hw: HardwareConfig,
     The tile-split candidate sets are finite divisor sets; the footprint is
     monotone nondecreasing in every block dimension, so evaluating it at
     each dimension's domain minimum bounds every completion from below.
-    Only sound for the registered ``space_for`` program shapes: matmul's
-    splits depend on the variant alone, so the bound is exact. The
-    footprint is ``space.matmul_block_bytes``, the one the dynamic
-    ``postproc_vmem_fit`` checks."""
+    Only sound for the registered ``space_for`` program shapes (matmul's
+    splits depend on the variant alone, so the bound is exact; gemv/vmacc
+    later splits condition on earlier ones, so their lower bound uses the
+    generator's hard floor — bn >= 1, bc >= lane — and stays sound). The
+    footprints are the ones ``space.concretize`` computes and the dynamic
+    ``postproc_vmem_fit`` checks (``space.matmul_block_bytes`` for
+    matmul)."""
+    op = workload.op
+    ib = dtype_bytes(workload.dtype)
+    ob = dtype_bytes(workload.out_dtype)
+    lane = hw.lane_align(workload.dtype)
     ctx = {"variant": variant}
     try:
-        if workload.op in ("matmul", "qmatmul"):
+        if op in ("matmul", "qmatmul"):
             bm = min(program.candidates("bm", ctx))
             bn = min(program.candidates("bn", ctx))
             bk = min(program.candidates("bk", ctx))
             return space_lib.matmul_block_bytes(workload, hw, bm, bn, bk)
+        if op == "gemv":
+            bk = min(program.candidates("bk", ctx))
+            bn = 1  # the J=1 row form is the generator's hard floor
+            return bk * ib + bk * bn * ib + bn * ob + 4 * bn
+        if op == "vmacc":
+            br = min(program.candidates("br", ctx))
+            bc = lane  # bc candidates are lane multiples (divisor domain)
+            return 4 * br * bc * max(ib, ob)
     except (KeyError, ValueError):
         return None
     return None
@@ -237,14 +252,33 @@ def _vmem_dead_variants(workload: Workload, hw: HardwareConfig,
 def _capability_check(op: str) -> Callable | None:
     """Per-leaf predicate cross-checking the trace's block against the
     kernel's own lowering capability; returns ``(ok, involved_decisions)``
-    or None when the trace doesn't carry the involved decisions.
+    or None when the trace doesn't carry the involved decisions. The
+    registered generators gate on this already — a failing combination
+    means some generator emitted a block the kernel cannot lower. (matmul's
+    launch gate is the ``postproc_kernel_support`` postprocessor, as in the
+    reference, where matmul has no capability check either.)"""
+    if op == "gemv":
+        from repro_torch.kernels.gemv import ops as gemv_ops  # lazy
 
-    Only the gemv and vmacc generators gate their splits on the kernel's
-    ``supports_block_shape``, and neither kernel is ported yet: every op
-    the port has a space for returns None here (matmul's launch gate is the
-    ``postproc_kernel_support`` postprocessor, as in the reference, where
-    matmul has no capability check either)."""
-    del op
+        def check_gemv(trace, lane, sub):
+            bn, bk = trace.get("bn"), trace.get("bk")
+            if bn is None or bk is None:
+                return None
+            return (bool(gemv_ops.supports_block_shape(int(bn), int(bk),
+                                                       lane)),
+                    ("bk", "bn"))
+        return check_gemv
+    if op == "vmacc":
+        from repro_torch.kernels.vmacc import ops as vmacc_ops  # lazy
+
+        def check_vmacc(trace, lane, sub):
+            br, bc = trace.get("br"), trace.get("bc")
+            if br is None or bc is None:
+                return None
+            return (bool(vmacc_ops.supports_block_shape(int(br), int(bc),
+                                                        sub, lane)),
+                    ("br", "bc"))
+        return check_vmacc
     return None
 
 

@@ -28,13 +28,39 @@ The learned posteriors persist to the database from ``finish()``.
 
 Measure/search scheduling
 -------------------------
-The JAX package can overlap measurement with search (``pipeline_depth >
-1``: a measurement scheduler holds proposed batches in flight while the
-next generation evolves against predicted latencies). That scheduler is not
-ported yet: here ``tune`` runs the synchronous loop and raises for a deeper
-pipeline. The mechanics live in :class:`TuneDriver`, an explicit
-propose/reconcile state machine kept line for line with the reference, so
-the scheduler can drive it unchanged once it is ported.
+On real hardware, measurement — not search — dominates tuning wall-time
+(9-12 s per candidate on the paper's FPGA targets). ``tune`` therefore
+supports an asynchronous pipeline (``pipeline_depth > 1``): generation N is
+submitted to the measurement backend and generation N+1 is evolved
+immediately against the cost model's *predicted* latencies for the
+in-flight candidates (a constant-liar strategy), reconciling when the
+measurements land.
+
+Submission goes through a :class:`~repro_torch.core.measure_scheduler.
+MeasureScheduler`, which holds **multiple batches from multiple drivers in
+flight concurrently**: runners with a native async ``submit_batch`` (the
+JAX package's board farm; none in the port yet) keep every target busy
+across batch — and workload — boundaries, while plain synchronous runners
+(``CudaRunner`` among them: one card) are wrapped in the scheduler's
+single-FIFO measurement thread.
+
+The pipeline is **deterministic by construction**: each driver's batches
+are reconciled in that driver's own submission order (per-driver FIFO), and
+a driver's propose/reconcile points depend only on its *own* reconcile
+count — so which driver happens to reconcile first (a completion-order
+observation under the multi-queue scheduler) can never leak into any
+driver's trajectory, and a given seed replays the same per-driver history
+regardless of backend shape or runner speed. Runners that measure
+instantaneously (the analytic model) declare ``overlap_capable = False``;
+for them the effective depth is clamped to 1 — there is no latency to
+hide, and the pipelined path then reproduces the synchronous trajectory
+bit-identically.
+
+The mechanics live in :class:`TuneDriver`, an explicit propose/reconcile
+state machine; :class:`~repro_torch.core.session.TuningSession` drives several
+drivers against one scheduler to interleave one workload's measurement with
+another's evolution. Overlap accounting is span-accurate: the scheduler
+records real measuring/waiting intervals, not summed totals.
 """
 
 from __future__ import annotations
@@ -53,6 +79,7 @@ from repro_torch.core.cost_model import (RidgeCostModel, features,
 from repro_torch.core.database import TuningDatabase
 from repro_torch.core.evolution import EvolutionarySearch
 from repro_torch.core.hardware import HardwareConfig
+from repro_torch.core.measure_scheduler import MeasureScheduler
 from repro_torch.core.runner import INVALID, Runner, run_batch as _run_batch
 from repro_torch.core.sampler import TraceSampler
 from repro_torch.core import static_analysis as static_lib
@@ -128,6 +155,35 @@ class TuneResult:
         if self.best_schedule is None:
             return None
         return space_lib.concretize(self.workload, self.hw, self.best_schedule)
+
+
+def effective_pipeline_depth(runner: Runner, requested: int) -> int:
+    """Clamp the pipeline depth to what the runner can actually use.
+
+    A runner that measures instantaneously and deterministically (e.g. the
+    analytic model) gains nothing from speculating against predicted
+    latencies — it only degrades search quality — so unless it declares
+    ``overlap_capable = True`` the depth is clamped to 1, which keeps the
+    pipelined execution bit-identical to the synchronous trajectory.
+
+    An overlap-capable runner that also declares a ``max_inflight``
+    capacity hint (the serial measurement queue and ``MeasurePool``-backed
+    runners report 1; a board farm its board count) is clamped to
+    ``max_inflight + 1`` — one batch per concurrently-progressing slot plus
+    one being evolved against the constant liar. Depth beyond that only
+    parks batches in the backend's queue, deepening speculation on stale
+    predictions with zero extra overlap; the clamp happens once, here, and
+    the depth actually used is what ``TuneResult.pipeline_depth`` reports.
+    Runners without the hint keep the requested depth.
+    """
+    if requested <= 1:
+        return 1
+    if not getattr(runner, "overlap_capable", False):
+        return 1
+    hint = getattr(runner, "max_inflight", None)
+    if hint is None:
+        return requested
+    return min(requested, max(1, int(hint)) + 1)
 
 
 class TuneDriver:
@@ -482,6 +538,105 @@ def timed_run_batch(runner: Runner, driver: TuneDriver,
         driver.measure_time_s += time.perf_counter() - t0
 
 
+def run_scheduled(drivers: Sequence[TuneDriver], runner: Runner,
+                  depth: int, multi_queue: bool | None = None,
+                  scheduler: MeasureScheduler | None = None,
+                  depth_policy=None,
+                  on_reconcile: Callable[[int, TuneDriver], None] | None = None
+                  ) -> MeasureScheduler:
+    """Drive one or many :class:`TuneDriver` state machines against a
+    :class:`~repro_torch.core.measure_scheduler.MeasureScheduler`.
+
+    Every driver is topped up to its effective depth in-flight batches
+    (fixed round-robin fill order), then the next reconcilable batch is
+    collected: per-driver FIFO always, highest-priority then
+    earliest-completed first across drivers — so on a multi-queue backend
+    (a board farm) a driver whose batch finished early is refilled
+    immediately instead of queueing behind another driver's slower batch,
+    and the backend never starves while any driver has work. A driver's
+    propose/reconcile points depend only on its own reconcile count, so
+    per-driver histories are bit-identical to the single-FIFO schedule for
+    a fixed seed (see the module docstring).
+
+    ``depth_policy`` (an
+    :class:`~repro_torch.core.measure_scheduler.AdaptiveDepthPolicy`, default
+    None = fixed ``depth`` everywhere, bit-identical to the pre-adaptive
+    executor) supplies each driver's effective depth before every top-up
+    and is fed each reconcile's lag afterwards. ``on_reconcile`` (the
+    session's entropy stop policy) runs after every reconcile with the
+    driver — it may curtail the driver or extend its budget; both only
+    change how many batches ``propose()`` will still yield, never the
+    content of batches already proposed. It also runs for any drained
+    driver whose own budget is spent, before each top-up pass, so budget
+    released by other drivers can still reach a driver that exhausted its
+    own *before* the release happened.
+
+    Returns the scheduler (already closed) so callers can read its
+    span-accurate measure/wait/overlap accounting; each driver's
+    ``overlap_span_s`` is stamped from it before returning. Callers that
+    need the scheduler's effective mode up front (its ``multi_queue``
+    attribute is the authority on whether the native path is in use) may
+    construct it themselves and pass it as ``scheduler``.
+    """
+    if scheduler is None:
+        scheduler = MeasureScheduler(runner, multi_queue=multi_queue)
+    counts = [0] * len(drivers)
+    try:
+        while True:
+            submitted = False
+            for i, driver in enumerate(drivers):
+                target = depth_policy.depth(i) if depth_policy is not None \
+                    else depth
+                driver.note_depth(target)
+                if (on_reconcile is not None and counts[i] == 0
+                        and driver.remaining_trials <= 0):
+                    # drained with its own budget spent: the hook gets a
+                    # chance to extend it from budget other drivers released
+                    # *after* this driver's last reconcile. Fully drained,
+                    # so any granted batch is proposed with complete
+                    # knowledge of the driver's own history — at depth 1 an
+                    # extended history is exactly the unextended history
+                    # plus extra trailing batches.
+                    on_reconcile(i, driver)
+                while counts[i] < target:
+                    batch = driver.propose()
+                    if batch is None:
+                        break
+                    scheduler.submit(i, driver.workload, batch,
+                                     priority=getattr(driver, "priority", 0))
+                    counts[i] += 1
+                    submitted = True
+            if scheduler.inflight():
+                i, batch, latencies, wait_s, measure_s = \
+                    scheduler.collect_next()
+                drivers[i].wait_time_s += wait_s
+                drivers[i].measure_time_s += measure_s
+                drivers[i].reconcile(batch, latencies)
+                counts[i] -= 1
+                if depth_policy is not None:
+                    # lag: this driver's batches still in flight when the
+                    # collected one reconciled (all proposed against the
+                    # constant liar rather than its real latencies)
+                    depth_policy.on_collect(i, scheduler, counts[i])
+                if on_reconcile is not None:
+                    on_reconcile(i, drivers[i])
+            elif not submitted:
+                break
+    finally:
+        scheduler.close()
+        for i, driver in enumerate(drivers):
+            driver.overlap_span_s = scheduler.overlap_s(i)
+    return scheduler
+
+
+def run_pipelined(drivers: Sequence[TuneDriver], runner: Runner,
+                  depth: int) -> None:
+    """Single-FIFO compatibility wrapper over :func:`run_scheduled`
+    (``multi_queue=False``): all drivers feed one measurement thread, the
+    pre-scheduler behaviour benchmarks compare against."""
+    run_scheduled(drivers, runner, depth, multi_queue=False)
+
+
 def tune(workload: Workload, hw: HardwareConfig, runner: Runner,
          trials: int = 64, seed: int = 0,
          database: TuningDatabase | None = None,
@@ -494,20 +649,23 @@ def tune(workload: Workload, hw: HardwareConfig, runner: Runner,
          prior_distributions: Mapping[str, Mapping] | None = None,
          pretrain_cost_model: bool = False,
          static_analysis: bool = True,
+         adaptive_depth: bool = False,
+         max_depth: int = 8,
+         priority: int = 0,
          reuse_measured: bool = False) -> TuneResult:
-    """Tune one workload with the synchronous loop: propose a batch,
-    measure it, reconcile, until the budget is spent. ``pipeline_depth``
-    must be 1 (deeper pipelines need the measurement scheduler, not yet
-    ported: ``NotImplementedError``). ``reuse_measured`` (off by default)
-    settles candidates the database already measured at equal fidelity from
-    the stored latency instead of re-measuring them
+    """Tune one workload. ``pipeline_depth`` bounds how many proposed batches
+    may be in flight at once (1 = fully synchronous; see module docstring for
+    the determinism guarantees of the pipelined mode); ``adaptive_depth``
+    lets an :class:`~repro_torch.core.measure_scheduler.AdaptiveDepthPolicy` grow
+    the effective depth up to ``max_depth`` where the backend would
+    otherwise idle (off by default: fixed-seed histories then stay
+    bit-identical to the fixed-depth executor); ``priority`` tags this
+    search's batches for priority-aware backends; ``reuse_measured`` (off
+    by default) settles candidates the database already measured at equal
+    fidelity from the stored latency instead of re-measuring them
     (``TuneResult.measured_memo`` counts them); the ``learn_*`` /
     ``prior_distributions`` / ``pretrain_cost_model`` knobs are documented
     on :class:`TuneDriver`."""
-    if pipeline_depth > 1:
-        raise NotImplementedError(
-            "pipeline_depth > 1 needs the measurement scheduler, not yet "
-            "ported (ROADMAP, queue 1: measure_scheduler)")
     driver = TuneDriver(workload, hw, runner, trials=trials, seed=seed,
                         database=database, warmup_fraction=warmup_fraction,
                         batch=batch, warm_start=warm_start, log=log,
@@ -515,13 +673,29 @@ def tune(workload: Workload, hw: HardwareConfig, runner: Runner,
                         prior_distributions=prior_distributions,
                         pretrain_cost_model=pretrain_cost_model,
                         static_analysis=static_analysis,
+                        priority=priority,
                         reuse_measured=reuse_measured)
-    while (batch_s := driver.propose()) is not None:
-        latencies = timed_run_batch(runner, driver, batch_s)
-        driver.reconcile(batch_s, latencies)
-    driver.wait_time_s = driver.measure_time_s  # nothing overlapped
-    driver.overlap_span_s = 0.0
-    driver.note_depth(1)
+    depth = effective_pipeline_depth(runner, pipeline_depth)
+    if pipeline_depth <= 1:
+        while (batch_s := driver.propose()) is not None:
+            latencies = timed_run_batch(runner, driver, batch_s)
+            driver.reconcile(batch_s, latencies)
+        driver.wait_time_s = driver.measure_time_s  # nothing overlapped
+        driver.overlap_span_s = 0.0
+        driver.note_depth(1)
+    else:
+        # Even when clamped to depth 1, run through the scheduler so the
+        # asynchronous plumbing is exercised (and verified bit-identical).
+        from repro_torch.core.measure_scheduler import AdaptiveDepthPolicy
+
+        policy = AdaptiveDepthPolicy(depth, max_depth=max_depth) \
+            if adaptive_depth and depth > 1 else None
+        run_scheduled([driver], runner, depth, depth_policy=policy)
+        if depth == 1:
+            # at depth 1 nothing can overlap; don't let scheduling jitter
+            # between submit and collect report as spurious overlap
+            driver.wait_time_s = driver.measure_time_s
+            driver.overlap_span_s = 0.0
     if database is not None and database.path:
         database.save()
-    return driver.finish(pipeline_depth=1)
+    return driver.finish(pipeline_depth=depth)

@@ -20,8 +20,8 @@ launch (``_build.py``).
 
 ``baseline(workload)`` is the library yardstick, the JAX package's
 ``xla_baseline`` analogue: one PyTorch call (``torch.matmul``,
-``torch._int_mm``). It is timed beside the kernels and never fills a
-kernel slot.
+``torch._int_mm``, ``torch.addcmul``). It is timed beside the kernels and
+never fills a kernel slot.
 """
 
 from __future__ import annotations
@@ -39,6 +39,12 @@ def _build_uncached(params: KernelParams, device: str):
         return ops.build(params, device=device)
     if params.op == "qmatmul":
         from repro_torch.kernels.qmatmul import ops
+        return ops.build(params, device=device)
+    if params.op == "gemv":
+        from repro_torch.kernels.gemv import ops
+        return ops.build(params, device=device)
+    if params.op == "vmacc":
+        from repro_torch.kernels.vmacc import ops
         return ops.build(params, device=device)
     raise NotImplementedError(
         f"no kernel for op {params.op} yet (not ported, see ROADMAP)")
@@ -70,13 +76,21 @@ def reference(workload: Workload):
     if workload.op == "qmatmul":
         from repro_torch.kernels.qmatmul.ref import qmatmul_ref
         return qmatmul_ref
+    if workload.op == "gemv":
+        from repro_torch.kernels.gemv.ref import gemv_ref
+        return gemv_ref
+    if workload.op == "vmacc":
+        from repro_torch.kernels.vmacc.ref import vmacc_ref
+        return vmacc_ref
     raise NotImplementedError(f"no reference for op {workload.op} yet")
 
 
 def baseline(workload: Workload):
     """One PyTorch library call computing the op in the workload dtype —
     the yardstick the tuned kernels are compared with (``torch.matmul``;
-    ``torch._int_mm`` for int8, plus the requantization for qmatmul)."""
+    ``torch._int_mm`` for int8, plus the requantization for qmatmul;
+    ``torch.matmul`` with a float32 result for gemv, as the kernels return;
+    ``torch.addcmul`` for vmacc)."""
     import torch
 
     from repro_torch.kernels.matmul.ops import TORCH_DTYPES
@@ -84,29 +98,87 @@ def baseline(workload: Workload):
     if workload.op == "matmul":
         dtype = TORCH_DTYPES[workload.dtype]
         if dtype == torch.int8:
-            return lambda x, w: torch._int_mm(x, w)
+            return _int_mm
         return lambda x, w: torch.matmul(x.to(dtype), w.to(dtype))
     if workload.op == "qmatmul":
         from repro_torch.kernels.qmatmul.ops import DEFAULT_SCALE
         from repro_torch.kernels.qmatmul.plain import requantize
 
-        return lambda x, w, bias: requantize(torch._int_mm(x, w), bias[None, :],
+        return lambda x, w, bias: requantize(_int_mm(x, w), bias[None, :],
                                              DEFAULT_SCALE)
+    if workload.op == "gemv":
+        dtype = TORCH_DTYPES[workload.dtype]
+        return lambda x, w: torch.matmul(x.to(dtype), w.to(dtype)).float()
+    if workload.op == "vmacc":
+        return lambda a, b, c: torch.addcmul(c, a, b)
     raise NotImplementedError(f"no baseline for op {workload.op} yet")
+
+
+# (rows, k, n, device type) -> the padded shape ``torch._int_mm`` is called
+# at for it (the shape itself when it takes it).
+_INT_MM_SHAPES: dict[tuple, tuple[int, int, int]] = {}
+
+
+def _int_mm(x, w):
+    """``torch._int_mm(x, w)`` for any shape. On the card it takes only
+    more than 16 rows and k and n multiples of 8, and cuBLASLt refuses some
+    shapes within those limits too (``CUBLAS_STATUS_NOT_SUPPORTED`` for
+    MobileNetV2's 784 x 144 x 24, and for it padded to 784 x 144 x 32). The
+    call tries the shape itself, then zero-padded to multiples of 16, then
+    of 128, and remembers per shape the first one that runs."""
+    m, k = x.shape
+    n = w.shape[1]
+    key = (m, k, n, x.device.type)
+    if key in _INT_MM_SHAPES:
+        return _int_mm_at(x, w, _INT_MM_SHAPES[key])
+    tries = [(m, k, n)] + [tuple(d + (-d) % g for d in (max(m, 17), k, n))
+                           for g in (16, 128)]
+    for i, shape in enumerate(tries):
+        try:
+            out = _int_mm_at(x, w, shape)
+        except RuntimeError:
+            if i == len(tries) - 1:
+                raise
+            continue
+        _INT_MM_SHAPES[key] = shape
+        return out
+
+
+def _int_mm_at(x, w, shape):
+    """``x @ w`` in int32 through ``torch._int_mm`` at ``shape`` (pm, pk,
+    pn), zero-padding the operands up to it and slicing the result back."""
+    import torch
+
+    m, k = x.shape
+    n = w.shape[1]
+    pm, pk, pn = shape
+    if shape == (m, k, n):
+        return torch._int_mm(x, w)
+    xp = torch.nn.functional.pad(x, (0, pk - k, 0, pm - m))
+    wp = torch.nn.functional.pad(w, (0, pn - n, 0, pk - k))
+    return torch._int_mm(xp, wp)[:m, :n]
 
 
 def launch_counts() -> dict[str, int]:
     """Launches of each CUDA kernel since the last reset."""
-    from repro_torch.kernels.matmul import kernel as matmul_kernel
-    from repro_torch.kernels.qmatmul import kernel as qmatmul_kernel
-
-    return {**matmul_kernel.launches, **qmatmul_kernel.launches}
+    counts: dict[str, int] = {}
+    for launches in _launch_tables():
+        counts.update(launches)
+    return counts
 
 
 def reset_launch_counts() -> None:
+    for launches in _launch_tables():
+        for name in launches:
+            launches[name] = 0
+
+
+def _launch_tables() -> tuple[dict[str, int], ...]:
+    """Each kernel wrapper's launch-count table."""
+    from repro_torch.kernels.gemv import kernel as gemv_kernel
     from repro_torch.kernels.matmul import kernel as matmul_kernel
     from repro_torch.kernels.qmatmul import kernel as qmatmul_kernel
+    from repro_torch.kernels.vmacc import kernel as vmacc_kernel
 
-    for counts in (matmul_kernel.launches, qmatmul_kernel.launches):
-        for name in counts:
-            counts[name] = 0
+    return (matmul_kernel.launches, qmatmul_kernel.launches,
+            gemv_kernel.launches, vmacc_kernel.launches)

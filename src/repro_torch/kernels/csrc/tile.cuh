@@ -1,4 +1,5 @@
-// Block-tiled product shared by matmul.cu and qmatmul.cu.
+// Block-tiled product shared by matmul.cu and qmatmul.cu. gemv.cu and
+// vmacc.cu include it for to_f32 and kernel_error_string only.
 //
 // One thread block computes one (bm, bn) output tile. Its threads form a
 // (bm/4) x (bn/4) grid; each owns a 4x4 register micro-tile, strided so that

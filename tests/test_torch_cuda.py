@@ -1,6 +1,7 @@
 """Card tests of the port's CUDA kernels: each kernel against its plain
-PyTorch version on the same device tensors, launch refusal, the CUDA
-runner and dispatch. They need a CUDA device and skip without one.
+PyTorch version on the same device tensors, launch refusal on both sides of
+each launch gate, the CUDA runner, interleaved sessions and dispatch. They
+need a CUDA device and skip without one.
 
 Run on a machine with an H100:  python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
@@ -12,14 +13,20 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.core import (H100, CudaRunner, Schedule, TuningDatabase,  # noqa: E402
-                              concretize, kernel_params, tune)
+                              TuningSession, concretize, kernel_params, tune)
 from repro_torch.core import workload as W  # noqa: E402
+from repro_torch.core.tuner import effective_pipeline_depth  # noqa: E402
 from repro_torch.kernels._build import KernelLaunchError  # noqa: E402
+from repro_torch.kernels.gemv import ops as gemv_ops  # noqa: E402
+from repro_torch.kernels.gemv import plain as gemv_plain  # noqa: E402
+from repro_torch.kernels.gemv.kernel import gemv_blocked  # noqa: E402
 from repro_torch.kernels.matmul import ops as matmul_ops  # noqa: E402
 from repro_torch.kernels.matmul import plain as matmul_plain  # noqa: E402
 from repro_torch.kernels.matmul.kernel import matmul_blocked  # noqa: E402
 from repro_torch.kernels.qmatmul import plain as qmatmul_plain  # noqa: E402
 from repro_torch.kernels.qmatmul.kernel import qmatmul_blocked  # noqa: E402
+from repro_torch.kernels.vmacc import plain as vmacc_plain  # noqa: E402
+from repro_torch.kernels.vmacc.kernel import vmacc_blocked  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -187,3 +194,202 @@ def test_cuda_runner_invalid_block_is_inf(cuda):
                          accumulate=True)   # bk off the 16 grain
     assert not concretize(wl, H100, bad).valid
     assert runner.run(wl, bad) == float("inf")
+
+
+# ------------------------------------------------------- gemv and vmacc ----
+
+def _vector_operands(n, k, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((1, k)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))
+    return x.to(device, dtype), w.to(device, dtype)
+
+
+def _elementwise_operands(r, c, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal((r, c)).astype(
+        np.float32)).to(device, dtype) for _ in range(3))
+
+
+@pytest.mark.parametrize("shape,block", [
+    ((32000, 576), (128, 64)),     # the MobileLLM-125M LM head
+    ((960, 576), (16, 576)),       # QKV, one k step
+    ((576, 1536), (64, 96)),
+    ((112, 320), (1, 32)),         # the J = 1 row kernel
+    ((2048, 64), (1024, 16)),      # one thread per column
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("accumulate", [True, False])
+def test_gemv_kernels_match_plain(cuda, shape, block, dtype, accumulate):
+    n, k = shape
+    x, w = _vector_operands(n, k, dtype, cuda)
+    got = gemv_blocked(x, w, block, accumulate)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (1, n)
+    # bf16 products are exact in f32: both dtypes differ by sum order only
+    torch.testing.assert_close(got, gemv_plain.gemv_plain(x, w, block[1]),
+                               rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("shape,block", [
+    ((12544, 32), (32, 32)),       # MobileNetV2's first depthwise stage
+    ((64, 1024), (16, 128)),       # 49 x 960, padded to the block
+    ((3136, 96), (16, 16)),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vmacc_kernel_matches_plain(cuda, shape, block, dtype):
+    a, b, c = _elementwise_operands(*shape, dtype, cuda)
+    got = vmacc_blocked(a, b, c, block)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    # f32: one fused multiply-add against a rounded product; bf16: the
+    # kernel rounds as the two eager operations do
+    tol = 1e-5 if dtype == torch.float32 else 0.0
+    torch.testing.assert_close(got, vmacc_plain.vmacc_plain(a, b, c),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("inside", [True, False], ids=["inside", "beyond"])
+def test_gemv_gate_matches_kernel_thread_limit(cuda, inside):
+    """One thread per output column at most 1024 threads: the gate and the
+    kernel's own check agree on both sides of the limit."""
+    bn = gemv_ops.MAX_BN if inside else gemv_ops.MAX_BN + 16
+    assert gemv_ops.supports_block_shape(bn, 16, 16) is inside
+    x, w = _vector_operands(bn, 32, torch.float32, cuda)
+    if not inside:
+        with pytest.raises(KernelLaunchError) as err:
+            gemv_blocked(x, w, (bn, 16))
+        assert err.value.refused
+    else:
+        got = gemv_blocked(x, w, (bn, 16))
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, gemv_plain.gemv_plain(x, w, 16),
+                                   rtol=1e-4, atol=1e-3)
+    torch.cuda.synchronize()  # the context survived
+
+
+@pytest.mark.parametrize("op,block,inside", [
+    ("gemv", (16, 16), True), ("gemv", (16, 24), False),      # bk lane
+    ("gemv", (1, 16), True), ("gemv", (8, 16), False),        # bn: 1 or lane
+    ("vmacc", (16, 16), True), ("vmacc", (8, 16), False),     # br sublane
+    ("vmacc", (16, 32), True), ("vmacc", (16, 24), False),    # bc lane
+])
+def test_design_space_gates_on_both_sides(cuda, op, block, inside):
+    """The reference's lane and sublane rules (no limit of the CUDA
+    kernels): a block inside them is a valid H100 candidate and runs right
+    on the card; one step beyond is INVALID before it reaches the card."""
+    dims = (96, 48)
+    wl = W.gemv(*dims) if op == "gemv" else W.vmacc(*dims)
+    variant = "vl_16" if op == "gemv" else "vl_min"
+    key = ("bn", "bk") if op == "gemv" else ("br", "bc")
+    decisions = dict(zip(key, block), variant=variant)
+    if op == "gemv":
+        decisions["accumulate"] = True
+    params = concretize(wl, H100, Schedule.fixed(**decisions))
+    assert params.valid is inside, params.why_invalid
+    if inside:
+        inputs = wl.example_inputs()
+        got = kernels.build(wl, params, device="cuda")(*inputs).cpu()
+        want = kernels.build(wl, params, device="cpu")(*inputs)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+def test_new_kernels_count_launches(cuda):
+    kernels.reset_launch_counts()
+    x, w = _vector_operands(64, 64, torch.float32, cuda)
+    gemv_blocked(x, w, (16, 32), accumulate=True)
+    gemv_blocked(x, w, (16, 32), accumulate=False)
+    vmacc_blocked(*_elementwise_operands(16, 16, torch.float32, cuda),
+                  (16, 16))
+    counts = kernels.launch_counts()
+    assert counts["_gemv_kernel"] == counts["_gemv_noacc_kernel"] == 1
+    assert counts["_vmacc_kernel"] == 1
+
+
+def test_interleaved_cuda_session_tunes_gemv_and_vmacc(cuda):
+    """A session on the card at pipeline depth 2: measured by the
+    scheduler's thread, every workload tuned, outputs equal to the plain
+    versions'."""
+    runner = CudaRunner(H100, repeats=2, warmup=1)
+    assert effective_pipeline_depth(runner, 2) == 2
+    ops = [(2, W.gemv(960, 576, "bfloat16")), (9, W.vmacc(49, 960)),
+           (1, W.qmatmul(49, 96, 576))]
+    db = TuningDatabase()
+    res = TuningSession(H100, runner, database=db,
+                        pipeline_depth=2).tune_model(ops, total_trials=24,
+                                                     seed=0)
+    assert res.interleaved and res.pipeline_depth == 2
+    for _, wl in ops:
+        params, provenance = kernel_params(wl, H100, database=db)
+        assert provenance == "tuned"
+        inputs = wl.example_inputs()
+        got = kernels.build(wl, params, device="cuda")(*inputs).cpu()
+        want = kernels.build(wl, params, device="cpu")(*inputs)
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-4,
+                                   atol=1e-3)
+
+
+def test_interleaved_cuda_session_raises_on_kernel_fault(cuda, monkeypatch):
+    """A fault in a kernel launched from the measurement thread is not
+    swallowed there: the session raises it in the tuning thread."""
+    real_build = kernels.build
+
+    def faulty_build(workload, params, device="cuda", cache=None):
+        fn = real_build(workload, params, device=device, cache=cache)
+        if workload.op != "vmacc":
+            return fn
+
+        def fault(*inputs):
+            raise KernelLaunchError("_vmacc_kernel", 700,
+                                    "an illegal memory access was "
+                                    "encountered")
+        return fault
+
+    monkeypatch.setattr(kernels, "build", faulty_build)
+    ops = [(1, W.gemv(576, 576)), (1, W.vmacc(64, 128))]
+    session = TuningSession(H100, CudaRunner(H100, repeats=1, warmup=0),
+                            pipeline_depth=2)
+    with pytest.raises(KernelLaunchError) as err:
+        session.tune_model(ops, total_trials=8, seed=0)
+    assert not err.value.refused
+
+
+@pytest.mark.parametrize("wl", [W.qmatmul(12544, 32, 27),
+                                W.qmatmul(784, 144, 24),
+                                W.qmatmul(3136, 24, 96),
+                                W.qmatmul(1, 1000, 1280),
+                                W.qmatmul(3136, 64, 576)],
+                         ids=lambda w: w.key())
+def test_int8_library_call_takes_the_networks_shapes(cuda, wl):
+    """The library yardstick pads what ``torch._int_mm`` refuses (k = 27
+    and 24, n = 24, a single row) and equals the oracle exactly."""
+    inputs = tuple(t.to(cuda) for t in map(torch.from_numpy,
+                                           wl.example_inputs()))
+    got = kernels.baseline(wl)(*inputs)
+    assert torch.equal(got, kernels.reference(wl)(*inputs))
+
+
+def test_measurement_thread_launches_on_device0_default_stream(cuda):
+    """The scheduler's measurement thread launches on the default stream of
+    device 0, the stream ``CardTimer`` records its events on."""
+    from repro_torch.core import MeasureScheduler
+
+    seen = []
+
+    class Probe(CudaRunner):
+        def run_batch(self, workload, schedules):
+            seen.append((torch.cuda.current_device(),
+                         torch.cuda.current_stream()))
+            return super().run_batch(workload, schedules)
+
+    runner = Probe(H100, repeats=1, warmup=0)
+    wl = W.vmacc(64, 128)
+    sched = MeasureScheduler(runner)
+    try:
+        sched.submit(0, wl, [Schedule.fixed(variant="vl_min", br=16,
+                                            bc=128)])
+        _, _, latencies, _, _ = sched.collect_next()
+    finally:
+        sched.close()
+    assert np.isfinite(latencies[0])
+    assert seen == [(0, torch.cuda.default_stream(0))]

@@ -173,6 +173,7 @@ def test_build_cache_keys_on_signature_and_backend():
     assert cache.stats()["misses"] == 2 and cache.stats()["hits"] == 1
     with pytest.raises(ValueError):
         kernels.build(wl, params, device="tpu", cache=cache)
-    with pytest.raises(NotImplementedError):
-        kernels.build(W.gemv(8, 8), dataclasses.replace(params, op="gemv"),
+    with pytest.raises(NotImplementedError):   # attention is not ported
+        kernels.build(W.attention(1, 2, 2, 8, 8, 8),
+                      dataclasses.replace(params, op="attention"),
                       device="cpu", cache=False)

@@ -3,9 +3,9 @@ the tuning database and dispatch.
 
 - On ``AnalyticRunner(V5E)`` a fixed seed must give a bit-identical
   search in both packages (history, best schedule, database records).
-- A database the JAX package wrote (a gemv record included, an op the port
-  has no kernel for yet) loads in the port untouched, and dispatch
-  resolves the same schedule, provenance and KernelParams.
+- A database the JAX package wrote (a gemv record included) loads in the
+  port untouched, and dispatch resolves the same schedule, provenance and
+  KernelParams.
 - A short ``EmulateRunner`` tune on the card's design space completes, and
   its best schedule's output equals the JAX Pallas kernel's on the same
   KernelParams.
@@ -79,7 +79,7 @@ def test_reference_database_resolves_identically(tmp_path):
     db = TuningDatabase(path)
     assert db.records == ref_db.records
     assert db.quarantined == {} and db.stale_quarantined == 0
-    assert any(k.startswith("gemv-") for k in db.records)  # left untouched
+    assert any(k.startswith("gemv-") for k in db.records)
     for ref_wl, wl in pairs:
         ref_s, ref_prov = ref_dispatch.best_schedule(ref_wl, ref_hw.V5E,
                                                      database=ref_db)
@@ -145,10 +145,15 @@ def test_no_fallback_without_a_card():
 
 
 def test_unported_paths_raise():
+    """Attention is the one op the port has no kernel and no space for;
+    a deeper pipeline and the gemv space are ported and no longer raise."""
     with pytest.raises(NotImplementedError):
-        tune(W.matmul(32, 32, 32), V5E, AnalyticRunner(V5E), trials=4,
-             pipeline_depth=2)
-    with pytest.raises(NotImplementedError):
-        tune(W.gemv(32, 32), V5E, AnalyticRunner(V5E), trials=4)
+        tune(W.attention(1, 2, 2, 16, 16, 8), V5E, AnalyticRunner(V5E),
+             trials=4)
+    res = tune(W.matmul(32, 32, 32), V5E, AnalyticRunner(V5E), trials=4,
+               pipeline_depth=2)
+    assert res.pipeline_depth == 1  # the analytic runner clamps the depth
+    assert np.isfinite(tune(W.gemv(32, 32), V5E, AnalyticRunner(V5E),
+                            trials=4).best_latency)
     with pytest.raises(ValueError):
         CudaRunner(V5E)
