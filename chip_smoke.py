@@ -20,14 +20,20 @@ widths, unreduced:
   five bf16 gemv workloads, the 32000 x 576 LM head among them) and
   MobileNetV2 int8 at 224 x 224 (``repro_torch.nets.mobilenetv2``: 18
   qmatmul and 6 vmacc workloads), the session interleaving measurement on
-  the card with search on the host (pipeline depth 2).
+  the card with search on the host (pipeline depth 2);
+
+- the attention path: BERT-tiny int8 and MobileLLM-125M int8 prefill at
+  sequence 64 (``repro_torch.nets.bert_tiny`` / ``mobilellm_125m``: the
+  f32 attention workloads, non-causal MHA and causal GQA, beside their
+  int8 projections) through ``TuningSession`` at pipeline depth 2.
 
 Phases (any failure exits nonzero and prints no result line):
   1. the card, its power limit, and the kernels' build (ptxas report);
   2. each kernel against its plain PyTorch version on the same device
      tensors: qmatmul exact, f32 rtol 1e-4 / atol 1e-3 (another sum order),
-     bf16 outputs 5e-2, vmacc 1e-5; TF32 is off for the plain versions'
-     products;
+     bf16 outputs 5e-2, vmacc 1e-5, attention 2e-3 (f32 and bf16, and on
+     peaked scores, q scaled by Q_SHARP); TF32 is off for the plain
+     versions' products;
   3. tune W1-W3 (32 trials, seed 0) with launch counts zeroed just before
      and read just after; dispatch must then resolve "tuned" and the tuned
      kernel's output must equal the plain version's;
@@ -36,9 +42,12 @@ Phases (any failure exits nonzero and prints no result line):
      tuned kernel's output equal the plain version's; per network the
      tuned, fixed-library and library-call latencies (each the sum of
      count x latency) and the session's overlap fraction;
-  5. per kernel: launches on the main paths (phases 3 and 4), time, plain
-     version's time, library call's time and the card's bound, as one JSON
-     line.
+  4b. the same for the two prefill networks (the attention path), with
+     their own launch counts;
+  5. per kernel: launches on the main paths (phases 3, 4 and 4b), time,
+     plain version's time, library call's time and the card's bound, as one
+     JSON line (``_fa_kernel`` at MobileLLM's prefill; its row at sequence
+     2048, the best rung of its ladder, is on the line of all rows).
 The last line is {"ok": true, "device": {...}}.
 
 Run:  python3 chip_smoke.py      (needs one CUDA card and nvcc)
@@ -59,10 +68,14 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 TRIALS, SEED = 32, 0
 # Network phase budgets: trials per unique workload of each network.
-DECODE_TRIALS, MNV2_TRIALS = 32, 16
+DECODE_TRIALS, MNV2_TRIALS, PREFILL_TRIALS = 32, 16, 16
+# q times this turns example_inputs' near-uniform attention (operands of
+# standard deviation 0.5, scores of 0.25) into a peaked one (scores of 4).
+Q_SHARP = 16.0
 SLICE1 = ("_acc_kernel", "_noacc_kernel", "_qmm_kernel")
 SLICE2 = ("_qmm_kernel", "_gemv_kernel", "_gemv_noacc_kernel",
           "_vmacc_kernel")
+SLICE3 = ("_qmm_kernel", "_fa_kernel")
 REPLACES = {
     "_acc_kernel": "src/repro/kernels/matmul/kernel.py:25",
     "_noacc_kernel": "src/repro/kernels/matmul/kernel.py:42",
@@ -70,6 +83,7 @@ REPLACES = {
     "_gemv_kernel": "src/repro/kernels/gemv/kernel.py:23",
     "_gemv_noacc_kernel": "src/repro/kernels/gemv/kernel.py:38",
     "_vmacc_kernel": "src/repro/kernels/vmacc/kernel.py:20",
+    "_fa_kernel": "src/repro/kernels/flash_attention/kernel.py:25",
 }
 SOURCE = {
     "_acc_kernel": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -78,6 +92,7 @@ SOURCE = {
     "_gemv_kernel": "src/repro_torch/kernels/csrc/gemv.cu",
     "_gemv_noacc_kernel": "src/repro_torch/kernels/csrc/gemv.cu",
     "_vmacc_kernel": "src/repro_torch/kernels/csrc/vmacc.cu",
+    "_fa_kernel": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
 
 
@@ -94,6 +109,18 @@ def bound_ms(tensors_in, tensor_out, ops: float, dtype: str):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def attention_visible_ops(wl) -> float:
+    """Operations attention needs on this workload: QK^T and PV, two
+    multiply-adds each per visible (query, key) pair and head dim, whatever
+    the block. Causal rows see the keys up to the bottom-right diagonal."""
+    b, hq, _hkv, lq, lkv, d = wl.dims
+    if "causal" in wl.tags:
+        pairs = sum(min(lkv, max(0, i + lkv - lq + 1)) for i in range(lq))
+    else:
+        pairs = lq * lkv
+    return 4.0 * b * hq * pairs * d
+
+
 def main() -> int:
     import torch
 
@@ -106,11 +133,14 @@ def main() -> int:
     from repro_torch.core import (H100, CudaRunner, Schedule, TuningDatabase,
                                   TuningSession, baseline_latency, concretize,
                                   ensure_tuned, fixed_library_schedule,
-                                  kernel_params, tune)
+                                  kernel_params, space_for, tune)
     from repro_torch.core import workload as W
     from repro_torch.core.hardware import check_device
     from repro_torch.core.runner import CardTimer, device_inputs
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_blocked, plain_version as fa_plain)
     from repro_torch.kernels.gemv import plain as gemv_plain
     from repro_torch.kernels.gemv.kernel import gemv_blocked
     from repro_torch.kernels.matmul import plain as mm_plain
@@ -280,6 +310,53 @@ def main() -> int:
     check_vmacc(odd_dw, dict(variant="vl_32x128", br=32, bc=128),
                 "odd 49x960")
 
+    def check_attention(wl, variant, label, q_scale=1.0):
+        params = concretize(wl, H100, Schedule.fixed(variant=variant))
+        if not params.valid:
+            raise RuntimeError(f"{label}: {params.why_invalid}")
+        q, k, v = device_inputs(wl)
+        q = q * q_scale
+        qp, kp, vp = fa_ops.pad_operands(params, q, k, v)
+        got = flash_attention_blocked(qp, kp, vp, params)
+        torch.cuda.synchronize()
+        d = close(got, fa_plain(qp, kp, vp, params), 2e-3, 2e-3,
+                  f"_fa_kernel {label} {variant} {params.block} padded "
+                  f"{params.padded_dims[3:]} {wl.dtype}")
+        err["_fa_kernel"] = max(err["_fa_kernel"], d)
+        # the whole op against the oracle, on the rows that see a key (the
+        # others follow the Pallas kernel, not the oracle: ROADMAP)
+        lq, lkv = wl.dims[3], wl.dims[4]
+        first = max(0, lq - lkv) if "causal" in wl.tags else 0
+        out = kernels.build(wl, params)(q, k, v)
+        tol = 2e-2 if wl.dtype == "bfloat16" else 2e-3
+        close(out[:, :, first:], kernels.reference(wl)(q, k, v)[:, :, first:],
+              tol, tol, f"  op {label} vs oracle, rows {first}-{lq - 1}")
+
+    mha = W.attention(1, 2, 2, 64, 64, 64, causal=False)   # BERT-tiny
+    gqa = W.attention(1, 9, 3, 64, 64, 64)                 # MobileLLM-125M
+    gqa_long = W.attention(1, 9, 3, 2048, 2048, 64)        # at max_seq_len
+    for variant in ("fa_128x128", "fa_16x16"):
+        check_attention(mha, variant, "BERT-tiny MHA")
+    for variant in ("fa_64x32", "fa_16x64"):
+        check_attention(gqa, variant, "MobileLLM GQA causal")
+    check_attention(W.attention(1, 9, 3, 64, 64, 64, "bfloat16"), "fa_64x64",
+                    "MobileLLM GQA causal")
+    ragged = W.attention(1, 2, 1, 17, 33, 8)
+    no_key = W.attention(1, 2, 1, 33, 17, 8)   # q rows 0-15 see no key
+    for variant in ("fa_16x16", "fa_32x64"):
+        check_attention(ragged, variant, "ragged 17x33")
+        check_attention(no_key, variant, "no-visible-key 33x17")
+    check_attention(gqa_long, "fa_128x128", "MobileLLM GQA causal seq 2048")
+    # Scores of standard deviation ~4 instead of ~0.25: the running max
+    # moves between KV blocks, so the rescale by alpha and the exp path
+    # carry the result.
+    check_attention(mha, "fa_16x16", "BERT-tiny MHA, sharp scores",
+                    Q_SHARP)
+    check_attention(gqa, "fa_16x16", "MobileLLM GQA causal, sharp scores",
+                    Q_SHARP)
+    check_attention(gqa_long, "fa_128x128",
+                    "MobileLLM GQA causal seq 2048, sharp scores", Q_SHARP)
+
     # ---------------------------------------------------------------- 3 ----
     phase(f"3. main path, one operator: tune W1-W3 ({TRIALS} trials, seed "
           f"{SEED}), database, dispatch")
@@ -334,6 +411,48 @@ def main() -> int:
           f"(ensure_tuned, {DECODE_TRIALS} trials per workload) and "
           f"MobileNetV2 int8 (TuningSession, depth 2, {MNV2_TRIALS} trials "
           f"per workload), seed {SEED}")
+
+    def report_networks(sessions):
+        """Per network: every unique workload must resolve "tuned" and its
+        tuned output equal the plain version's; then the tuned, fixed-
+        library and library-call sums and the overlap fraction."""
+        for net, res in sessions.items():
+            t_lib = 0.0
+            for rep in res.reports:
+                wl = rep.workload
+                params, provenance = kernel_params(wl, H100, database=net_db)
+                if provenance != "tuned":
+                    raise RuntimeError(f"{wl.key()}: dispatch resolved "
+                                       f"{provenance}")
+                inputs = runner.inputs(wl)
+                got = kernels.build(wl, params)(*inputs)
+                # the plain version of the same schedule, on host copies
+                want = kernels.build(wl, params, device="cpu")(
+                    *(t.cpu() for t in inputs))
+                if wl.op == "qmatmul":
+                    rtol, atol = 0.0, 0.0
+                elif wl.op == "vmacc":
+                    rtol, atol = 1e-5, 1e-5
+                elif wl.op == "attention":
+                    rtol, atol = 2e-3, 2e-3
+                else:
+                    rtol, atol = 5e-2, 5e-2
+                close(got.cpu(), want, rtol, atol,
+                      f"  tuned x{rep.count} {wl.key()} {params.block} vs plain")
+                lib = baseline_latency(wl)
+                t_lib += rep.count * lib
+                print(f"    x{rep.count}: tuned {rep.best_latency*1e6:.2f} us, "
+                      f"fixed library {rep.fixed_latency*1e6:.2f} us, library "
+                      f"call {lib*1e6:.2f} us, {rep.trials} trials")
+            print(f"  {net}: {len(res.reports)} unique workloads, "
+                  f"{res.total_trials} trials, interleaved {res.interleaved} "
+                  f"(depth {res.pipeline_depth}); tuned "
+                  f"{res.tuned_latency*1e6:.2f} us, fixed library "
+                  f"{res.fixed_latency*1e6:.2f} us, library call "
+                  f"{t_lib*1e6:.2f} us (each the sum of count x latency); "
+                  f"overlap fraction {res.overlap_fraction:.4f}; wall "
+                  f"{res.wall_time_s:.1f} s")
+
     net_db = TuningDatabase()
     decode = decode_ops(get_config("mobilellm_125m"), 1)
     mnv2 = nets.mobilenetv2("int8")
@@ -352,44 +471,35 @@ def main() -> int:
     launches4 = kernels.launch_counts()
     print(f"launches on the network path: {launches4}")
 
-    for net, res in sessions.items():
-        t_lib = 0.0
-        for rep in res.reports:
-            wl = rep.workload
-            params, provenance = kernel_params(wl, H100, database=net_db)
-            if provenance != "tuned":
-                raise RuntimeError(f"{wl.key()}: dispatch resolved "
-                                   f"{provenance}")
-            inputs = runner.inputs(wl)
-            got = kernels.build(wl, params)(*inputs)
-            # the plain version of the same schedule, on host copies
-            want = kernels.build(wl, params, device="cpu")(
-                *(t.cpu() for t in inputs))
-            if wl.op == "qmatmul":
-                rtol, atol = 0.0, 0.0
-            elif wl.op == "vmacc":
-                rtol, atol = 1e-5, 1e-5
-            else:
-                rtol, atol = 5e-2, 5e-2
-            close(got.cpu(), want, rtol, atol,
-                  f"  tuned x{rep.count} {wl.key()} {params.block} vs plain")
-            lib = baseline_latency(wl)
-            t_lib += rep.count * lib
-            print(f"    x{rep.count}: tuned {rep.best_latency*1e6:.2f} us, "
-                  f"fixed library {rep.fixed_latency*1e6:.2f} us, library "
-                  f"call {lib*1e6:.2f} us, {rep.trials} trials")
-        print(f"  {net}: {len(res.reports)} unique workloads, "
-              f"{res.total_trials} trials, interleaved {res.interleaved} "
-              f"(depth {res.pipeline_depth}); tuned "
-              f"{res.tuned_latency*1e6:.2f} us, fixed library "
-              f"{res.fixed_latency*1e6:.2f} us, library call "
-              f"{t_lib*1e6:.2f} us (each the sum of count x latency); "
-              f"overlap fraction {res.overlap_fraction:.4f}; wall "
-              f"{res.wall_time_s:.1f} s")
+    report_networks(sessions)
     for name in SLICE2:
         if launches4[name] == 0:
             raise RuntimeError(f"{name} was not launched on the network path")
-    launches = {name: launches3[name] + launches4[name] for name in REPLACES}
+
+    phase(f"4b. main path, attention: BERT-tiny and MobileLLM-125M int8 "
+          f"prefill at seq 64 (TuningSession, depth 2, {PREFILL_TRIALS} "
+          f"trials per workload), seed {SEED}")
+    prefill = {"bert_tiny int8 prefill": (nets.bert_tiny("int8"),
+                                          "bert_tiny-int8-prefill"),
+               "mobilellm_125m int8 prefill": (nets.mobilellm_125m("int8"),
+                                               "mobilellm_125m-int8-prefill")}
+    kernels.reset_launch_counts()
+    sessions3 = {
+        net: TuningSession(H100, runner, database=net_db,
+                           pipeline_depth=2).tune_model(
+            ops, total_trials=PREFILL_TRIALS * len({wl.key()
+                                                    for _, wl in ops}),
+            seed=SEED, model=model)
+        for net, (ops, model) in prefill.items()}
+    launches4b = kernels.launch_counts()
+    print(f"launches on the attention path: {launches4b}")
+    report_networks(sessions3)
+    for name in SLICE3:
+        if launches4b[name] == 0:
+            raise RuntimeError(f"{name} was not launched on the attention "
+                               f"path")
+    launches = {name: launches3[name] + launches4[name] + launches4b[name]
+                for name in REPLACES}
 
     # ---------------------------------------------------------------- 5 ----
     phase("5. kernel times at the main paths' shapes")
@@ -420,7 +530,12 @@ def main() -> int:
 
     def row(name, wl, params, label):
         x = runner.inputs(wl)
-        if wl.op == "vmacc":
+        if wl.op == "attention":
+            args = (*fa_ops.pad_operands(params, *x), params)
+            kern, plain_fn = flash_attention_blocked, fa_plain
+            bound, by = bound_ms(args[:3], kern(*args),
+                                 attention_visible_ops(wl), wl.dtype)
+        elif wl.op == "vmacc":
             pr, pc = params.padded_dims
             ap, bp, cp = (pad2(t, pr, pc).contiguous() for t in x)
             args = (ap, bp, cp, params.block)
@@ -485,13 +600,26 @@ def main() -> int:
         print(f"  {exc}; timing the block {noacc_params.block}")
     gemv_noacc = row("_gemv_noacc_kernel", lm_head, noacc_params, "LM head")
     vmacc_row = row("_vmacc_kernel", dw1, net_best_of(dw1), "dw1")
+    fa_row = row("_fa_kernel", gqa, net_best_of(gqa),
+                 "MobileLLM prefill seq 64")
+    ladder = {v: runner.run(gqa_long, Schedule.fixed(variant=v))
+              for v in space_for(gqa_long, H100)["variant"]}
+    best_long = min(ladder, key=ladder.get)
+    print("  seq 2048 ladder (us, the op as dispatch builds it): "
+          + ", ".join(f"{v} {t*1e6:.1f}" for v, t in ladder.items()))
+    row("_fa_kernel", gqa_long,
+        concretize(gqa_long, H100, Schedule.fixed(variant=best_long)),
+        "MobileLLM prefill seq 2048")
+    print("  (_fa_kernel bounds count the operations of the visible "
+          "(query, key) pairs only)")
     print("rows " + json.dumps(rows))
     print(card_line)
     strip = ("workload", "block")
     print(json.dumps({"kernels": [{k: v for k, v in r.items()
                                    if k not in strip}
                                   for r in (acc3, noacc3, qmm2, gemv_acc,
-                                            gemv_noacc, vmacc_row)]}))
+                                            gemv_noacc, vmacc_row,
+                                            fa_row)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

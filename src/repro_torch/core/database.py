@@ -445,23 +445,20 @@ class TuningDatabase:
     # ---- static screening ----------------------------------------------------
     def _static_report_for_key(self, key: str):
         """Feasibility report for a record key's *own* (workload, hardware)
-        space, or None when one can't be built (unknown hardware name, an
-        op whose design space is not ported — ``space.UNPORTED_OPS``,
-        attention only — malformed workload JSON) — verification is then
-        skipped rather than guessed, so records the JAX package wrote for
-        ops or hardware this package cannot analyse keep loading
-        untouched. gemv and vmacc records are analysed like matmul's."""
+        space, or None when one can't be built (unknown hardware name,
+        unregistered op, malformed workload JSON) — verification is then
+        skipped rather than guessed, so cross-hardware transfer records and
+        foreign-family databases keep loading untouched. Records the JAX
+        package wrote for any of its ops are analysed as it analyses them."""
         wl_json = self.workloads.get(key)
         if wl_json is None or "@" not in key:
             return None
         try:
             wl = Workload.from_json(wl_json)
             hw = hw_lib.get(key.rsplit("@", 1)[1])
-            if wl.op in space_lib.UNPORTED_OPS:
-                return None
-            return static_lib.feasibility(wl, hw)
         except Exception:
             return None
+        return static_lib.feasibility(wl, hw)
 
     def _verify_records(self) -> None:
         """Quarantine loaded records the static analyzer proves stale.

@@ -83,6 +83,9 @@ def _fixed_library_schedule(workload: Workload,
     #    default stands for "our hand-written kernel, frozen" and does
     #    accumulate in-core.
     names = [v.name for v in variants]
+    # The H100's attention ladder stops at fa_128x128, so attention falls
+    # to names[0], fa_128x128 (clamped to the sequence by concretize); the
+    # TPU configs pick fa_256x256 where the sequence admits it.
     pick = None
     for preferred in ("mxu_256", "vl_2048", "vl_32x1024", "fa_256x256"):
         if preferred in names:

@@ -187,6 +187,12 @@ def postproc_kernel_support(workload: Workload, hw: HardwareConfig,
         ok = vmacc_ops.supports_block_shape(
             *params.block, hw.sublane_align(params.dtype),
             hw.lane_align(params.dtype))
+    elif params.op == "attention":
+        from repro_torch.kernels.flash_attention import ops as fa_ops  # lazy
+
+        ok = fa_ops.supports_block_shape(*params.block,
+                                         params.padded_dims[5],
+                                         params.dtype, hw.vmem_capacity)
     if not ok:
         return f"block {params.block} not launchable by the CUDA kernel"
     return ""
@@ -662,21 +668,12 @@ def _scaled(base: int, scale: float, align: int, cap: int) -> int:
     return min(b, max(align, round_up(cap, align)))
 
 
-# Op families whose kernels are not ported yet: no design space, since their
-# tile splits gate on kernels that do not exist here.
-UNPORTED_OPS = ("attention",)
-
-
 def space_for(workload: Workload, hw: HardwareConfig) -> SpaceProgram:
     """The generative design-space program of a workload on a hardware
     config — the probabilistic program MetaSchedule would sample. Decisions
     compose the intrinsic-variant choice (the paper's multi-VL registration)
     with variant-conditioned perfect-tile splits, loop order, and the
     k-split-conditioned accumulate-in-registers choice of Algorithm 1."""
-    if workload.op in UNPORTED_OPS:
-        raise NotImplementedError(
-            f"{workload.op}: design space not yet ported (its kernel is "
-            f"not), see ROADMAP")
     names = _variant_names(workload, hw)
     lane = hw.lane_align(workload.dtype)
     sub = hw.sublane_align(workload.dtype)
@@ -779,6 +776,8 @@ def space_for(workload: Workload, hw: HardwareConfig) -> SpaceProgram:
                 legacy=legacy_tile("r_scale", 0, r, sub)),
             sample_tile_split("bc", bc_candidates, legacy=legacy_bc),
         ]
+    elif workload.op == "attention":
+        pass  # the variant ladder is the whole space (block_q x block_kv)
     else:
         raise ValueError(f"unknown op {workload.op}")
     return SpaceProgram(workload, hw, ins)
@@ -923,6 +922,23 @@ def matmul_block_bytes(workload: Workload, hw: HardwareConfig, bm: int,
     return bm * bk * ib + bk * bn * ib + bm * bn * ob + bm * bn * 4
 
 
+def attention_block_bytes(workload: Workload, hw: HardwareConfig, bq: int,
+                          bkv: int, pd: int) -> int:
+    """On-chip bytes of one (bq, bkv) attention block at padded head dim
+    ``pd`` — nondecreasing in each block dimension.
+
+    TPU configs: the q, k and v blocks, the f32 output accumulator, the
+    128-wide running max and sum scratch and the f32 score tile. CUDA
+    configs: the shared memory the kernel asks for."""
+    if isinstance(hw, CudaHardwareConfig):
+        from repro_torch.kernels.flash_attention import ops as fa_ops  # lazy
+
+        return fa_ops.smem_bytes(bq, bkv, pd, workload.dtype)
+    ib = dtype_bytes(workload.dtype)
+    return (bq * pd * ib + 2 * bkv * pd * ib + bq * pd * 4
+            + 2 * bq * 128 * 4 + bq * bkv * 4)
+
+
 def _concretize(workload: Workload, hw: HardwareConfig, schedule: Schedule,
                 postprocessors=DEFAULT_POSTPROCESSORS) -> KernelParams:
     """The uncached concretization body (see :func:`concretize`)."""
@@ -1005,9 +1021,7 @@ def _concretize(workload: Workload, hw: HardwareConfig, schedule: Schedule,
         pq, pkv = round_up(ql, bq), round_up(kl, bkv)
         pd = round_up(d, lane)
         grid = (b * hq, pq // bq, pkv // bkv)
-        # live blocks: q, k, v, o(f32), running m/l, s (bq x bkv f32)
-        vmem = (bq * pd * ib + 2 * bkv * pd * ib + bq * pd * 4
-                + 2 * bq * 128 * 4 + bq * bkv * 4)
+        vmem = attention_block_bytes(workload, hw, bq, bkv, pd)
         order = "qk_causal" if "causal" in workload.tags else "qk"
         params = KernelParams(op, dims, (b, hq, hkv, pq, pkv, pd), (bq, bkv),
                               grid, order, True, workload.dtype,

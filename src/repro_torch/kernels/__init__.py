@@ -20,11 +20,15 @@ launch (``_build.py``).
 
 ``baseline(workload)`` is the library yardstick, the JAX package's
 ``xla_baseline`` analogue: one PyTorch call (``torch.matmul``,
-``torch._int_mm``, ``torch.addcmul``). It is timed beside the kernels and
+``torch._int_mm``, ``torch.addcmul``,
+``scaled_dot_product_attention``). It is timed beside the kernels and
 never fills a kernel slot.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 from repro_torch.core.build_cache import BuildCache, global_build_cache
 from repro_torch.core.space import KernelParams
@@ -46,8 +50,10 @@ def _build_uncached(params: KernelParams, device: str):
     if params.op == "vmacc":
         from repro_torch.kernels.vmacc import ops
         return ops.build(params, device=device)
-    raise NotImplementedError(
-        f"no kernel for op {params.op} yet (not ported, see ROADMAP)")
+    if params.op == "attention":
+        from repro_torch.kernels.flash_attention import ops
+        return ops.build(params, device=device)
+    raise ValueError(f"no kernel registered for op {params.op}")
 
 
 def build(workload: Workload, params: KernelParams, device: str = "cuda",
@@ -82,7 +88,11 @@ def reference(workload: Workload):
     if workload.op == "vmacc":
         from repro_torch.kernels.vmacc.ref import vmacc_ref
         return vmacc_ref
-    raise NotImplementedError(f"no reference for op {workload.op} yet")
+    if workload.op == "attention":
+        from repro_torch.kernels.flash_attention.ref import attention_ref
+        return functools.partial(attention_ref,
+                                 causal="causal" in workload.tags)
+    raise ValueError(f"no reference for op {workload.op}")
 
 
 def baseline(workload: Workload):
@@ -90,7 +100,8 @@ def baseline(workload: Workload):
     the yardstick the tuned kernels are compared with (``torch.matmul``;
     ``torch._int_mm`` for int8, plus the requantization for qmatmul;
     ``torch.matmul`` with a float32 result for gemv, as the kernels return;
-    ``torch.addcmul`` for vmacc)."""
+    ``torch.addcmul`` for vmacc; ``scaled_dot_product_attention`` for
+    attention)."""
     import torch
 
     from repro_torch.kernels.matmul.ops import TORCH_DTYPES
@@ -111,7 +122,32 @@ def baseline(workload: Workload):
         return lambda x, w: torch.matmul(x.to(dtype), w.to(dtype)).float()
     if workload.op == "vmacc":
         return lambda a, b, c: torch.addcmul(c, a, b)
-    raise NotImplementedError(f"no baseline for op {workload.op} yet")
+    if workload.op == "attention":
+        return functools.partial(_sdpa, dtype=TORCH_DTYPES[workload.dtype],
+                                 causal="causal" in workload.tags)
+    raise ValueError(f"no baseline for op {workload.op}")
+
+
+def _sdpa(q, k, v, dtype, causal):
+    """``scaled_dot_product_attention`` with the oracle's semantics: scale
+    1/sqrt(d), grouped KV heads, and the causal mask aligned to the bottom
+    right. SDPA's ``is_causal`` aligns it to the top left, which is the same
+    only when q and kv have one length; otherwise the call adds the
+    oracle's -1e30 to the masked scores (a boolean mask would give a row
+    with no visible key zeros, where the oracle averages every v row)."""
+    import torch
+
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    lq, lkv, d = q.shape[2], k.shape[2], q.shape[3]
+    mask = None
+    if causal and lq != lkv:
+        visible = torch.ones((lq, lkv), dtype=torch.bool,
+                             device=q.device).tril(diagonal=lkv - lq)
+        mask = torch.zeros((lq, lkv), dtype=dtype,
+                           device=q.device).masked_fill(~visible, -1e30)
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=causal and lq == lkv,
+        scale=1.0 / math.sqrt(d), enable_gqa=True)
 
 
 # (rows, k, n, device type) -> the padded shape ``torch._int_mm`` is called
@@ -175,10 +211,11 @@ def reset_launch_counts() -> None:
 
 def _launch_tables() -> tuple[dict[str, int], ...]:
     """Each kernel wrapper's launch-count table."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.gemv import kernel as gemv_kernel
     from repro_torch.kernels.matmul import kernel as matmul_kernel
     from repro_torch.kernels.qmatmul import kernel as qmatmul_kernel
     from repro_torch.kernels.vmacc import kernel as vmacc_kernel
 
     return (matmul_kernel.launches, qmatmul_kernel.launches,
-            gemv_kernel.launches, vmacc_kernel.launches)
+            gemv_kernel.launches, vmacc_kernel.launches, fa_kernel.launches)

@@ -180,18 +180,14 @@ def test_legacy_v1_trace_concretizes_identically():
 
 @pytest.mark.parametrize("op", ["gemv", "vmacc", "attention"])
 def test_unported_ops_have_no_space(op):
-    """Only the ops in ``UNPORTED_OPS`` (attention, whose kernel is not
-    ported) lack a design space; gemv and vmacc have theirs since their
-    kernels were ported."""
+    """No op is left unported: gemv, vmacc and (since its kernel was
+    ported) attention each have a design space and an exhaustive static
+    report, on the TPU and the card's configurations."""
     _, port = _pair(*[c for c in WORKLOADS if c[0] == op][0])
-    assert space.UNPORTED_OPS == ("attention",)
-    if op in space.UNPORTED_OPS:
-        with pytest.raises(NotImplementedError):
-            space.space_for(port, hw.V5E)
-        assert static_analysis.feasibility(port, hw.V5E) is None
-    else:
-        assert space.space_for(port, hw.V5E).traces()
-        assert static_analysis.feasibility(port, hw.V5E).exhaustive
+    assert not hasattr(space, "UNPORTED_OPS")
+    for config in (hw.V5E, hw.H100):
+        assert space.space_for(port, config).traces()
+        assert static_analysis.feasibility(port, config).exhaustive
 
 
 @pytest.mark.parametrize("dims", [(3136, 64, 576), (64, 32000, 576),

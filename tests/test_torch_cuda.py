@@ -16,7 +16,11 @@ from repro_torch.core import (H100, CudaRunner, Schedule, TuningDatabase,  # noq
                               TuningSession, concretize, kernel_params, tune)
 from repro_torch.core import workload as W  # noqa: E402
 from repro_torch.core.tuner import effective_pipeline_depth  # noqa: E402
+from repro_torch.core.space import KernelParams  # noqa: E402
 from repro_torch.kernels._build import KernelLaunchError  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention_blocked, plain_version as fa_plain_version)
 from repro_torch.kernels.gemv import ops as gemv_ops  # noqa: E402
 from repro_torch.kernels.gemv import plain as gemv_plain  # noqa: E402
 from repro_torch.kernels.gemv.kernel import gemv_blocked  # noqa: E402
@@ -393,3 +397,124 @@ def test_measurement_thread_launches_on_device0_default_stream(cuda):
         sched.close()
     assert np.isfinite(latencies[0])
     assert seen == [(0, torch.cuda.default_stream(0))]
+
+
+# -------------------------------------------------------------- attention ----
+
+# tests/test_kernels.py:141, for f32 and bf16 outputs alike
+FA_TOL = 2e-3
+
+
+def _fa_check(wl, params, q_scale=1.0):
+    """``_fa_kernel`` against its plain version on the same padded device
+    operands (every row, padding included), q scaled by ``q_scale``."""
+    assert params.valid, params.why_invalid
+    q, k, v = wl.example_inputs()
+    q, k, v = fa_ops.pad_operands(params, q * q_scale, k, v, "cuda")
+    got = flash_attention_blocked(q, k, v, params)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype
+    torch.testing.assert_close(got.float(), fa_plain_version(q, k, v,
+                                                             params).float(),
+                               rtol=FA_TOL, atol=FA_TOL)
+
+
+@pytest.mark.parametrize("dims,causal,dtype,variant", [
+    ((1, 2, 2, 64, 64, 64), False, "float32", "fa_128x128"),  # BERT-tiny
+    ((1, 9, 3, 64, 64, 64), True, "float32", "fa_64x64"),     # MobileLLM
+    ((1, 9, 3, 64, 64, 64), True, "float32", "fa_16x16"),     # smallest rung
+    ((1, 9, 3, 64, 64, 64), True, "bfloat16", "fa_64x32"),
+    ((2, 4, 2, 64, 64, 32), True, "float32", "fa_32x64"),
+    ((1, 2, 1, 17, 33, 8), True, "float32", "fa_16x16"),      # ragged
+    ((1, 2, 1, 33, 17, 8), True, "float32", "fa_16x16"),      # no visible key
+    ((1, 2, 1, 33, 17, 8), True, "float32", "fa_64x64"),
+    ((1, 9, 3, 512, 512, 64), True, "float32", "fa_128x128"),  # largest rung
+    ((1, 9, 3, 512, 512, 64), True, "bfloat16", "fa_128x128"),
+])
+def test_fa_kernel_matches_plain(cuda, dims, causal, dtype, variant):
+    wl = W.attention(*dims, dtype, causal=causal)
+    _fa_check(wl, concretize(wl, H100, Schedule.fixed(variant=variant)))
+
+
+@pytest.mark.parametrize("dims,causal,variant", [
+    ((1, 2, 2, 64, 64, 64), False, "fa_16x16"),      # BERT-tiny
+    ((1, 9, 3, 64, 64, 64), True, "fa_16x16"),       # MobileLLM
+    ((1, 9, 3, 512, 512, 64), True, "fa_128x128"),
+    ((1, 2, 1, 33, 17, 8), True, "fa_16x16"),        # no visible key
+])
+def test_fa_kernel_matches_plain_on_peaked_scores(cuda, dims, causal,
+                                                   variant):
+    """q scaled 16x: scores of standard deviation ~4 instead of ~0.25, so
+    the running max moves between KV blocks and the alpha rescale and the
+    exp path carry the result."""
+    wl = W.attention(*dims, causal=causal)
+    _fa_check(wl, concretize(wl, H100, Schedule.fixed(variant=variant)),
+              q_scale=16.0)
+
+
+def _fa_params(pd, dtype):
+    """One (128, 128) block of a single head at padded head dim ``pd``."""
+    dims = (1, 1, 1, 128, 128, pd)
+    return KernelParams("attention", dims, dims, (128, 128), (1, 1, 1),
+                        "qk_causal", True, dtype, dtype,
+                        fa_ops.smem_bytes(128, 128, pd, dtype), True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("inside", [True, False], ids=["inside", "beyond"])
+def test_fa_gate_matches_kernel_limits(cuda, dtype, inside):
+    """The Python gate (``flash_attention.ops.supports_block_shape``) and
+    the kernel's own shared-memory request agree on both sides of the
+    H100's limit: the largest head dim the gate accepts for a (128, 128)
+    block launches and is right, one more is refused by the card."""
+    pd = 1
+    while fa_ops.supports_block_shape(128, 128, pd + 1, dtype,
+                                      H100.vmem_capacity):
+        pd += 1
+    if not inside:
+        pd += 1
+    assert fa_ops.supports_block_shape(128, 128, pd, dtype,
+                                       H100.vmem_capacity) is inside
+    params = _fa_params(pd, dtype)
+    wl = W.attention(*params.dims, dtype)
+    if inside:
+        _fa_check(wl, params)
+    else:
+        q, k, v = fa_ops.pad_operands(params, *wl.example_inputs(), "cuda")
+        with pytest.raises(KernelLaunchError) as err:
+            flash_attention_blocked(q, k, v, params)
+        assert err.value.refused
+    torch.cuda.synchronize()  # the context survived
+
+
+def test_cuda_runner_tunes_attention(cuda):
+    """MobileLLM-125M's prefill attention tuned on the card: every trial
+    measured (no rung is refused at head dim 64), dispatch resolves the
+    tuned schedule, its output equals the plain version's, and the kernel
+    was launched and counted."""
+    wl = W.attention(1, 9, 3, 64, 64, 64)
+    db = TuningDatabase()
+    kernels.reset_launch_counts()
+    res = tune(wl, H100, CudaRunner(H100, repeats=3), trials=8, seed=0,
+               database=db)
+    assert all(np.isfinite(lat) for _, lat in res.history)
+    assert kernels.launch_counts()["_fa_kernel"] > 0
+    params, provenance = kernel_params(wl, H100, database=db)
+    assert provenance == "tuned"
+    inputs = wl.example_inputs()
+    got = kernels.build(wl, params, device="cuda")(*inputs).cpu()
+    want = kernels.build(wl, params, device="cpu")(*inputs)
+    torch.testing.assert_close(got, want, rtol=FA_TOL, atol=FA_TOL)
+
+
+@pytest.mark.parametrize("dims,causal", [((1, 9, 3, 64, 64, 64), True),
+                                         ((1, 2, 1, 33, 17, 8), True),
+                                         ((1, 2, 2, 64, 64, 64), False)])
+def test_attention_library_call_matches_oracle(cuda, dims, causal):
+    """The SDPA yardstick (bottom-right causal mask, grouped heads) equals
+    the oracle on the card, TF32 off."""
+    wl = W.attention(*dims, causal=causal)
+    inputs = tuple(torch.from_numpy(a).to(cuda) for a in wl.example_inputs())
+    torch.testing.assert_close(kernels.baseline(wl)(*inputs),
+                               kernels.reference(wl)(*inputs), rtol=1e-4,
+                               atol=1e-4)

@@ -173,7 +173,12 @@ def test_build_cache_keys_on_signature_and_backend():
     assert cache.stats()["misses"] == 2 and cache.stats()["hits"] == 1
     with pytest.raises(ValueError):
         kernels.build(wl, params, device="tpu", cache=cache)
-    with pytest.raises(NotImplementedError):   # attention is not ported
-        kernels.build(W.attention(1, 2, 2, 8, 8, 8),
-                      dataclasses.replace(params, op="attention"),
+    with pytest.raises(ValueError):            # no kernel for this op
+        kernels.build(wl, dataclasses.replace(params, op="conv"),
                       device="cpu", cache=False)
+    att = W.attention(1, 2, 2, 8, 8, 8)        # attention builds
+    att_params = concretize(att, CPU_EMULATE, Schedule.fixed(
+        variant="fa_16x16"))
+    out = kernels.build(att, att_params, device="cpu", cache=cache)(
+        *att.example_inputs())
+    assert tuple(out.shape) == (1, 2, 8, 8)

@@ -145,11 +145,18 @@ def test_no_fallback_without_a_card():
 
 
 def test_unported_paths_raise():
-    """Attention is the one op the port has no kernel and no space for;
-    a deeper pipeline and the gemv space are ported and no longer raise."""
-    with pytest.raises(NotImplementedError):
-        tune(W.attention(1, 2, 2, 16, 16, 8), V5E, AnalyticRunner(V5E),
-             trials=4)
+    """Nothing is left unported: an analytic attention tune on V5E equals
+    the reference's (history and best), a deeper pipeline clamps on the
+    analytic runner, the gemv space tunes, and only a CUDA runner on a TPU
+    configuration raises."""
+    wl, ref_wl = (W.attention(1, 9, 3, 256, 256, 64),
+                  ref_W.attention(1, 9, 3, 256, 256, 64))
+    ours = tune(wl, V5E, AnalyticRunner(V5E), trials=4, seed=0)
+    theirs = ref_tuner.tune(ref_wl, ref_hw.V5E,
+                            ref_runner.AnalyticRunner(ref_hw.V5E), trials=4,
+                            seed=0)
+    assert _history(ours) == _history(theirs)
+    assert ours.best_latency == theirs.best_latency
     res = tune(W.matmul(32, 32, 32), V5E, AnalyticRunner(V5E), trials=4,
                pipeline_depth=2)
     assert res.pipeline_depth == 1  # the analytic runner clamps the depth
