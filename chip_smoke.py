@@ -25,18 +25,30 @@ widths, unreduced:
 - the attention path: BERT-tiny int8 and MobileLLM-125M int8 prefill at
   sequence 64 (``repro_torch.nets.bert_tiny`` / ``mobilellm_125m``: the
   f32 attention workloads, non-causal MHA and causal GQA, beside their
-  int8 projections) through ``TuningSession`` at pipeline depth 2.
+  int8 projections) through ``TuningSession`` at pipeline depth 2;
+
+- the bf16 tensor-core matmul: MobileLLM-125M bf16 prefill at sequence 64
+  (``repro_torch.nets.mobilellm_125m("bfloat16")``: 211 bf16 matmul calls
+  at 5 unique shapes, the 64 x 32000 x 576 LM head among them, beside the
+  f32 attention) through ``TuningSession`` at pipeline depth 2.
 
 Phases (any failure exits nonzero and prints no result line):
-  1. the card, its power limit, and the kernels' build (ptxas report);
+  1. the card, its power limit, and the kernels' build (ptxas report: the
+     registers and spills of the bf16 tensor-core kernels); ``cuobjdump
+     -sass`` of the matmul library must show HMMA, the tensor cores'
+     instruction, in every bf16 kernel;
   2. each kernel against its plain PyTorch version on the same device
-     tensors: qmatmul exact, f32 rtol 1e-4 / atol 1e-3 (another sum order),
-     bf16 outputs 5e-2, vmacc 1e-5, attention 2e-3 (f32 and bf16, and on
-     peaked scores, q scaled by Q_SHARP); TF32 is off for the plain
-     versions' products;
+     tensors: qmatmul exact, f32 and bf16 matmul rtol 1e-4 / atol 1e-3
+     (another sum order; bf16 products are exact in f32), bf16 op outputs
+     5e-2, vmacc 1e-5, attention 2e-3 (f32 and bf16, and on peaked
+     scores, q scaled by Q_SHARP); TF32 is off for the plain versions'
+     products. The bf16 matmul kernels at W3, at every block the bf16 LM
+     head's space offers (so at its tuned block), and at blocks off the
+     power-of-two ladder (bn 48, bk 16, bm 128, 80 x 112);
   3. tune W1-W3 (32 trials, seed 0) with launch counts zeroed just before
-     and read just after; dispatch must then resolve "tuned" and the tuned
-     kernel's output must equal the plain version's;
+     and read just after; no candidate may be INVALID, dispatch must then
+     resolve "tuned" and the tuned kernel's output must equal the plain
+     version's;
   4. tune the two networks with launch counts zeroed just before and read
      just after; every unique workload must then resolve "tuned" and its
      tuned kernel's output equal the plain version's; per network the
@@ -44,10 +56,14 @@ Phases (any failure exits nonzero and prints no result line):
      count x latency) and the session's overlap fraction;
   4b. the same for the two prefill networks (the attention path), with
      their own launch counts;
-  5. per kernel: launches on the main paths (phases 3, 4 and 4b), time,
+  4c. the same for MobileLLM-125M bf16 prefill, with its own launch counts;
+     ``_acc_kernel`` must launch there;
+  5. per kernel: launches on the main paths (phases 3, 4, 4b and 4c), time,
      plain version's time, library call's time and the card's bound, as one
-     JSON line (``_fa_kernel`` at MobileLLM's prefill; its row at sequence
-     2048, the best rung of its ladder, is on the line of all rows).
+     JSON line (``_acc_kernel`` and ``_noacc_kernel`` at W3, ``_fa_kernel``
+     at MobileLLM's prefill; ``_acc_kernel`` at the bf16 LM head and
+     ``_fa_kernel`` at sequence 2048, the best rung of its ladder, are on
+     the line of all rows).
 The last line is {"ok": true, "device": {...}}.
 
 Run:  python3 chip_smoke.py      (needs one CUDA card and nvcc)
@@ -56,7 +72,9 @@ Run:  python3 chip_smoke.py      (needs one CUDA card and nvcc)
 from __future__ import annotations
 
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 
@@ -76,6 +94,7 @@ SLICE1 = ("_acc_kernel", "_noacc_kernel", "_qmm_kernel")
 SLICE2 = ("_qmm_kernel", "_gemv_kernel", "_gemv_noacc_kernel",
           "_vmacc_kernel")
 SLICE3 = ("_qmm_kernel", "_fa_kernel")
+SLICE4 = ("_acc_kernel",)
 REPLACES = {
     "_acc_kernel": "src/repro/kernels/matmul/kernel.py:25",
     "_noacc_kernel": "src/repro/kernels/matmul/kernel.py:42",
@@ -107,6 +126,39 @@ def bound_ms(tensors_in, tensor_out, ops: float, dtype: str):
         + tensor_out.numel() * tensor_out.element_size()
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def tensor_core_kernel(mangled: str) -> str | None:
+    """``matmul_tc_kernel<WMF,WNF,REP,acc|noacc>`` for the mangled name of
+    one of the bf16 tensor-core kernels (``csrc/matmul.cu``), else None."""
+    m = re.search(r"matmul_tc_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E",
+                  mangled)
+    if m is None:
+        return None
+    wmf, wnf, rep, acc = m.groups()
+    return (f"matmul_tc_kernel<{wmf},{wnf},{rep},"
+            f"{'acc' if acc == '1' else 'noacc'}>")
+
+
+def tensor_core_ptxas(log: str) -> dict:
+    """Registers and spill bytes (stores, loads) that ``ptxas -v`` reports
+    for each bf16 tensor-core matmul kernel, by its readable name."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = tensor_core_kernel(m.group(1))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(cur, {})["spills"] = (int(m[1]), int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(cur, {})["registers"] = int(m[1])
+    return out
 
 
 def attention_visible_ops(wl) -> float:
@@ -171,10 +223,27 @@ def main() -> int:
         if "entry function" in line or "registers" in line or "spill" in line:
             print("  " + line.strip())
     print("(shared memory is dynamic: smem_bytes(bm, bn, bk) per launch)")
+    print("bf16 tensor-core kernels (matmul.cu), ptxas and SASS:")
+    resources = tensor_core_ptxas(_build.build_log())
+    sass = {tensor_core_kernel(name): body
+            for name, body in _build.sass("matmul").items()
+            if tensor_core_kernel(name)}
+    if not sass or set(sass) != set(resources):
+        raise RuntimeError(f"bf16 kernels in the SASS {sorted(sass)} and the "
+                           f"ptxas report {sorted(resources)} differ")
+    for label, body in sorted(sass.items()):
+        n_hmma = sum("HMMA" in line for line in body.splitlines())
+        res = resources[label]
+        print(f"  {label}: {res['registers']} registers, spill stores/loads "
+              f"{res['spills'][0]}/{res['spills'][1]} bytes, {n_hmma} HMMA "
+              f"instructions")
+        if n_hmma == 0:
+            raise RuntimeError(f"{label} has no HMMA: not on the tensor cores")
 
     wl1 = W.qmatmul(3136, 64, 576)
     wl2 = W.qmatmul(64, 32000, 576)
     wl3 = W.matmul(64, 1536, 576, "bfloat16")
+    lm_head_mm = W.matmul(64, 32000, 576, "bfloat16")   # MobileLLM prefill
     names = {wl1.key(): "W1", wl2.key(): "W2", wl3.key(): "W3"}
     lm_head = W.gemv(32000, 576, "bfloat16")   # MobileLLM-125M decode
     dw1 = W.vmacc(12544, 32)                   # MobileNetV2's first dw stage
@@ -281,6 +350,41 @@ def main() -> int:
         p = concretize(odd, H100, s)
         check_matmul(odd, p, f"odd {odd.dims} padded {p.padded_dims}",
                      "_acc_kernel" if acc else "_noacc_kernel")
+
+    def check_tensor_core(wl, block, label):
+        """Both bf16 tensor-core entries against the plain version on the
+        workload's inputs, padded to ``block``: _acc_kernel in both orders
+        and _noacc_kernel. One line per block."""
+        x, w = device_inputs(wl)
+        m, n, k = wl.dims
+        pm, pn, pk = (math.ceil(d / b) * b for d, b in zip((m, n, k), block))
+        xp, wp = pad2(x, pm, pk).contiguous(), pad2(w, pk, pn).contiguous()
+        want = mm_plain.matmul_plain(xp, wp, block[2]).double()
+        diffs = []
+        for name, order, acc in (("_acc_kernel", "mnk", True),
+                                 ("_acc_kernel", "nmk", True),
+                                 ("_noacc_kernel", "mnk", False)):
+            got = matmul_blocked(xp, wp, block, order, acc)
+            torch.cuda.synchronize()
+            diff = (got.double() - want).abs()
+            if not bool(torch.all(diff <= 1e-3 + 1e-4 * want.abs())):
+                raise RuntimeError(f"{name} {label} {block} {order} bf16 "
+                                   f"disagrees with its plain version")
+            diffs.append(float(diff.max()))
+            err[name] = max(err[name], diffs[-1])
+        print(f"  bf16 {label} {block} padded {(pm, pn, pk)}: max |diff| "
+              f"acc mnk {diffs[0]:.3g}, acc nmk {diffs[1]:.3g}, noacc "
+              f"{diffs[2]:.3g} (rtol 1e-4, atol 1e-3) ok")
+
+    for block in ((64, 64, 64), (16, 64, 64), (16, 48, 16), (128, 64, 64)):
+        check_tensor_core(wl3, block, "W3")
+    lm_blocks = sorted({concretize(lm_head_mm, H100, Schedule.fixed(**t)).block
+                        for t in space_for(lm_head_mm, H100).traces()})
+    for block in lm_blocks:
+        check_tensor_core(lm_head_mm, block, "LM head")
+    odd_bf16 = W.matmul(100, 200, 300, "bfloat16")
+    for block in ((80, 112, 16), (48, 48, 16), (32, 48, 32)):
+        check_tensor_core(odd_bf16, block, f"odd {odd_bf16.dims}")
     for wl, label in ((wl1, "W1"), (wl2, "W2")):
         check_qmatmul(wl, concretize(wl, H100,
                                      fixed_library_schedule(wl, H100)), label)
@@ -385,6 +489,8 @@ def main() -> int:
               f"{n_invalid} INVALID of {res.trials}; dispatch: {provenance}")
         if not res.best_latency < float("inf"):
             raise RuntimeError(f"{wl.key()}: no finite latency")
+        if n_invalid:
+            raise RuntimeError(f"{wl.key()}: {n_invalid} INVALID candidates")
         if provenance != "tuned":
             raise RuntimeError(f"{wl.key()}: dispatch resolved {provenance}")
         x = runner.inputs(wl)
@@ -498,8 +604,26 @@ def main() -> int:
         if launches4b[name] == 0:
             raise RuntimeError(f"{name} was not launched on the attention "
                                f"path")
+
+    phase(f"4c. main path, bf16 tensor cores: MobileLLM-125M bf16 prefill at "
+          f"seq 64 (TuningSession, depth 2, {PREFILL_TRIALS} trials per "
+          f"workload), seed {SEED}")
+    prefill_bf16 = nets.mobilellm_125m("bfloat16")
+    kernels.reset_launch_counts()
+    sessions4c = {"mobilellm_125m bf16 prefill": TuningSession(
+        H100, runner, database=net_db, pipeline_depth=2).tune_model(
+            prefill_bf16, total_trials=PREFILL_TRIALS * len(
+                {wl.key() for _, wl in prefill_bf16}),
+            seed=SEED, model="mobilellm_125m-bf16-prefill")}
+    launches4c = kernels.launch_counts()
+    print(f"launches on the bf16 prefill path: {launches4c}")
+    report_networks(sessions4c)
+    for name in SLICE4:
+        if launches4c[name] == 0:
+            raise RuntimeError(f"{name} was not launched on the bf16 prefill "
+                               f"path")
     launches = {name: launches3[name] + launches4[name] + launches4b[name]
-                for name in REPLACES}
+                + launches4c[name] for name in REPLACES}
 
     # ---------------------------------------------------------------- 5 ----
     phase("5. kernel times at the main paths' shapes")
@@ -588,6 +712,15 @@ def main() -> int:
 
     acc3 = row("_acc_kernel", wl3, best_of(wl3, accumulate=True), "W3")
     noacc3 = row("_noacc_kernel", wl3, best_of(wl3, accumulate=False), "W3")
+    try:
+        lm_params = net_best_of(lm_head_mm, accumulate=True)
+    except RuntimeError as exc:   # the session measured no acc LM head
+        lm_params = concretize(lm_head_mm, H100, Schedule.fixed(
+            variant="mxu_64", bm=64, bn=64, bk=64, order="mnk",
+            accumulate=True))
+        print(f"  {exc}; timing the block {lm_params.block}")
+    row("_acc_kernel", lm_head_mm, lm_params,
+        "MobileLLM bf16 prefill LM head 64x32000x576")
     row("_qmm_kernel", wl1, best_of(wl1), "W1")
     qmm2 = row("_qmm_kernel", wl2, best_of(wl2), "W2")
     gemv_acc = row("_gemv_kernel", lm_head,

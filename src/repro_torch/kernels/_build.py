@@ -20,6 +20,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -147,3 +148,22 @@ def build_log() -> str:
         return ""
     with open(path) as f:
         return f.read()
+
+
+def sass(stem: str) -> dict[str, str]:
+    """The SASS of each kernel of ``lib<stem>.so`` (building first if
+    needed), by mangled name, as ``cuobjdump -sass`` of the CUDA toolkit
+    prints it."""
+    path = _lib_path(build_all(), os.path.join(CSRC, stem + ".cu"))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    functions: dict[str, list[str]] = {}
+    body = None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            body = functions.setdefault(m.group(1), [])
+        elif body is not None:
+            body.append(line)
+    return {name: "\n".join(lines) for name, lines in functions.items()}

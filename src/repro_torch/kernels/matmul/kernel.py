@@ -4,7 +4,11 @@
 ``_noacc_kernel`` (``accumulate=False``) of the JAX package's
 ``kernels/matmul/kernel.py``. On a CUDA tensor it launches the kernel and
 counts the launch in :data:`launches`; on a CPU tensor it runs the plain
-version (``plain.py``), and only there.
+version (``plain.py``), and only there. bf16 operands run on the tensor
+cores (``mma.sync`` with a two-stage ``cp.async`` ring, the
+``matmul_tc_kernel`` instantiations), f32 and int8 on the CUDA cores; a
+block the kernel cannot launch raises ``KernelLaunchError``, with no
+fallback to another path.
 """
 
 from __future__ import annotations

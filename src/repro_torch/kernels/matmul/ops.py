@@ -9,18 +9,28 @@ import torch.nn.functional as F
 from repro_torch.core.space import KernelParams
 from repro_torch.core.workload import dtype_bytes
 
-# The kernels' thread layout (csrc/tile.cuh): a 4x4 register micro-tile per
-# thread and at most 1024 threads per block.
+# The f32 and int8 kernels' thread layout (csrc/tile.cuh): a 4x4 register
+# micro-tile per thread and at most 1024 threads per block.
 MICRO_TILE = 4
 MAX_THREADS = 1024
+# The bf16 tensor-core kernels (csrc/matmul.cu): 16x16 mma fragments, a
+# two-stage cp.async ring, shared rows padded by 8 bf16 values.
+MMA_FRAGMENT = 16
+TC_STAGES = 2
+TC_ROW_PAD = 8
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "int8": torch.int8, "int32": torch.int32}
 
 
 def smem_bytes(bm: int, bn: int, bk: int, dtype: str) -> int:
-    """Dynamic shared memory of one block: the x tile, its rows padded by
-    one 32-bit word, and the w tile (csrc/tile.cuh: smem_bytes)."""
+    """Dynamic shared memory of one block. bf16 (csrc/matmul.cu:
+    tc_smem_bytes): two stages of the x tile and the w tile, each row padded
+    by 8 values. f32 and int8 (csrc/tile.cuh: smem_bytes): the x tile, its
+    rows padded by one 32-bit word, and the w tile."""
+    if dtype == "bfloat16":
+        return TC_STAGES * (bm * (bk + TC_ROW_PAD)
+                            + bk * (bn + TC_ROW_PAD)) * 2
     ib = dtype_bytes(dtype)
     return (bm * (bk + 4 // ib) + bk * bn) * ib
 
@@ -29,13 +39,20 @@ def supports_block_shape(bm: int, bn: int, bk: int, dtype: str,
                          smem_limit: int) -> bool:
     """Can the CUDA kernels launch a (bm, bn, bk) block?
 
-    - bm and bn are multiples of the 4x4 per-thread micro-tile, and the
-      block's (bm/4) x (bn/4) threads number at most 1024: the register
-      accumulator holds bm * bn <= 16384 outputs;
-    - int8 steps k four at a time (``__dp4a``): bk % 4 == 0;
-    - the staged x and w tiles fit ``smem_limit`` bytes of shared memory.
+    - bf16 (tensor cores): bm, bn and bk are multiples of the 16x16 mma
+      fragment and bm * bn <= 16384 (at most 64 fragments, 32 warps);
+    - f32 and int8 (CUDA cores): bm and bn are multiples of the 4x4
+      per-thread micro-tile, and the block's (bm/4) x (bn/4) threads number
+      at most 1024: the register accumulator holds bm * bn <= 16384
+      outputs; int8 steps k four at a time (``__dp4a``): bk % 4 == 0;
+    - the block's shared memory (``smem_bytes``) fits ``smem_limit`` bytes.
     """
-    if min(bm, bn, bk) < 1 or bm % MICRO_TILE or bn % MICRO_TILE:
+    if min(bm, bn, bk) < 1:
+        return False
+    if dtype == "bfloat16":
+        if bm % MMA_FRAGMENT or bn % MMA_FRAGMENT or bk % MMA_FRAGMENT:
+            return False
+    elif bm % MICRO_TILE or bn % MICRO_TILE:
         return False
     if (bm // MICRO_TILE) * (bn // MICRO_TILE) > MAX_THREADS:
         return False

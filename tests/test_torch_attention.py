@@ -22,7 +22,6 @@ The CUDA kernel itself runs only on a card: tests/test_torch_cuda.py.
 
 import dataclasses
 import json
-import time
 
 import numpy as np
 import pytest
@@ -47,6 +46,7 @@ from repro.kernels.flash_attention.ref import \
     attention_ref as jax_attention_ref  # noqa: E402
 
 from _test_runners import SlowAnalytic as RefSlowAnalytic  # noqa: E402
+from _torch_test_runners import SlowAnalytic  # noqa: E402
 
 from repro_torch import kernels, nets  # noqa: E402
 from repro_torch.core import hardware as hw  # noqa: E402
@@ -323,25 +323,6 @@ def test_h100_analyzer_matches_exhaustive_enumeration(dims, causal, dtype):
 
 
 # ------------------------------------------------ the slice as a whole ----
-
-class SlowAnalytic:
-    """The port's analytic runner behind a per-batch delay, overlap-capable
-    (tests/_test_runners.py's runner for the port)."""
-
-    overlap_capable = True
-
-    def __init__(self, hw_config, delay_s):
-        self.hw, self.delay_s, self.name = hw_config, delay_s, "slow-analytic"
-        self._inner = AnalyticRunner(hw_config)
-
-    def run(self, workload, schedule):
-        time.sleep(self.delay_s)
-        return self._inner.run(workload, schedule)
-
-    def run_batch(self, workload, schedules):
-        time.sleep(self.delay_s)
-        return self._inner.run_batch(workload, schedules)
-
 
 def _report_rows(res):
     return [(r.workload.key(), r.count, r.trials,

@@ -17,6 +17,7 @@ from repro_torch.core import (H100, CudaRunner, Schedule, TuningDatabase,  # noq
 from repro_torch.core import workload as W  # noqa: E402
 from repro_torch.core.tuner import effective_pipeline_depth  # noqa: E402
 from repro_torch.core.space import KernelParams  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels._build import KernelLaunchError  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
@@ -63,6 +64,10 @@ def _operands(m, n, k, dtype, device, seed=0):
     ((64, 1536, 576), (64, 64, 96)),
     ((128, 96, 144), (128, 32, 48)),
     ((48, 32, 16), (16, 16, 16)),
+    ((64, 32000, 576), (64, 64, 64)),    # the LM head
+    ((64, 1536, 576), (16, 48, 16)),     # off the ladder: bn 48, bk 16
+    ((96, 144, 64), (32, 48, 32)),
+    ((80, 112, 32), (80, 112, 16)),      # bf16: two 16x16 tiles per warp
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("accumulate,order", [(True, "mnk"), (True, "nmk"),
@@ -116,13 +121,19 @@ _GATE_DTYPE = {torch.float32: "float32", torch.bfloat16: "bfloat16",
 def _gate_boundary(limit, dtype):
     """Blocks just inside and one step beyond one limit of the Python gate
     (``matmul.ops.supports_block_shape`` at the H100's shared memory)."""
-    if limit == "micro_tile":
+    bf16 = dtype == torch.bfloat16
+    if limit == "micro_tile":                    # f32, int8: 4x4 per thread
         return (4, 4, 16), (6, 4, 16)
-    if limit == "threads":                       # (bm/4) * (bn/4) <= 1024
-        return (128, 128, 16), (132, 128, 16)
+    if limit.startswith("grain_"):               # bf16: 16x16x16 fragments
+        dim = "mnk".index(limit[-1])
+        beyond = [16, 16, 16]
+        beyond[dim] = 24
+        return (16, 16, 16), tuple(beyond)
+    if limit == "threads":                       # bm * bn <= 16384
+        return (128, 128, 16), ((144, 128, 16) if bf16 else (132, 128, 16))
     if limit == "dp4a":                          # int8 bk % 4
         return (4, 4, 4), (4, 4, 6)
-    grain = 4 if dtype == torch.int8 else 1      # shared memory
+    grain = {torch.int8: 4, torch.bfloat16: 16}.get(dtype, 1)  # smem
     bk = grain
     while matmul_ops.supports_block_shape(16, 16, bk + grain,
                                           _GATE_DTYPE[dtype],
@@ -133,19 +144,23 @@ def _gate_boundary(limit, dtype):
 
 @pytest.mark.parametrize("limit,dtype", [
     (limit, dtype) for limit in ("micro_tile", "threads", "smem")
-    for dtype in (torch.float32, torch.bfloat16, torch.int8)
-] + [("dp4a", torch.int8)])
+    for dtype in (torch.float32, torch.int8)
+] + [("dp4a", torch.int8)] + [
+    (limit, torch.bfloat16)
+    for limit in ("grain_m", "grain_n", "grain_k", "threads", "smem")])
 @pytest.mark.parametrize("inside", [True, False], ids=["inside", "beyond"])
 def test_python_gate_matches_kernel_limits(cuda, limit, dtype, inside):
-    """The Python gate and the kernels' own checks (csrc/tile.cuh) agree on
-    both sides of every limit: a block the gate accepts launches and is
-    right, and one step beyond it the card refuses the launch."""
+    """The Python gate and the kernels' own checks (csrc/tile.cuh for f32
+    and int8, csrc/matmul.cu's tensor-core launcher for bf16) agree on both
+    sides of every limit: a block the gate accepts launches and is right,
+    and one step beyond it the card refuses the launch."""
     block = _gate_boundary(limit, dtype)[0 if inside else 1]
     assert matmul_ops.supports_block_shape(
         *block, _GATE_DTYPE[dtype], H100.vmem_capacity) is inside
     x, w = _operands(*block, dtype, cuda)      # one block: (bm, bk) @ (bk, bn)
-    pairs = [(lambda: matmul_blocked(x, w, block),
-              lambda: matmul_plain.matmul_plain(x, w, block[2]))]
+    pairs = [(lambda acc=acc: matmul_blocked(x, w, block, accumulate=acc),
+              lambda: matmul_plain.matmul_plain(x, w, block[2]))
+             for acc in (True, False)]
     if dtype == torch.int8:
         bias = torch.zeros(block[1], dtype=torch.int32, device=cuda)
         pairs.append((lambda: qmatmul_blocked(x, w, bias, 0.01, block),
@@ -165,6 +180,17 @@ def test_python_gate_matches_kernel_limits(cuda, limit, dtype, inside):
             rtol, atol = TOL[dtype]
             torch.testing.assert_close(got, want(), rtol=rtol, atol=atol)
     torch.cuda.synchronize()  # the context survived every refusal
+
+
+def test_bf16_matmul_kernels_run_on_tensor_cores(cuda):
+    """Every bf16 kernel of csrc/matmul.cu (both entries, each warp layout)
+    issues HMMA, the tensor cores' instruction, in the built SASS; the f32
+    and int8 kernels issue none."""
+    functions = _build.sass("matmul")
+    tc = [name for name in functions if "matmul_tc_kernel" in name]
+    assert len(tc) == 10, sorted(functions)   # 5 warp layouts x 2 entries
+    for name, body in functions.items():
+        assert ("HMMA" in body) == (name in tc), name
 
 
 def test_launch_counts(cuda):

@@ -38,6 +38,7 @@ from repro.core import V5E as REF_V5E  # noqa: E402
 from repro.runtime.serve_loop import decode_ops as ref_decode_ops  # noqa: E402
 
 from _test_runners import SlowAnalytic as RefSlowAnalytic  # noqa: E402
+from _torch_test_runners import SlowAnalytic  # noqa: E402
 
 from repro_torch import nets  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -58,29 +59,6 @@ from repro_torch.runtime.serve_loop import decode_ops  # noqa: E402
 WL_A = W.matmul(128, 128, 128, "bfloat16")
 WL_B = W.vmacc(64, 256)
 WL_C = W.matmul(256, 128, 128, "bfloat16")
-
-
-class SlowAnalytic:
-    """Deterministic analytic latencies behind an artificial measurement
-    delay — the stand-in for a target that takes real time per batch.
-    ``overlap_capable`` so the tuner pipeline and sessions treat it like
-    real hardware; no ``max_inflight`` hint, as the reference's."""
-
-    overlap_capable = True
-
-    def __init__(self, hw, delay_s=0.01):
-        self.hw = hw
-        self.delay_s = delay_s
-        self.name = "slow-analytic"
-        self._inner = AnalyticRunner(hw)
-
-    def run(self, workload, schedule):
-        time.sleep(self.delay_s)
-        return self._inner.run(workload, schedule)
-
-    def run_batch(self, workload, schedules):
-        time.sleep(self.delay_s)
-        return self._inner.run_batch(workload, schedules)
 
 
 class ThreadedAsyncRunner:
