@@ -34,9 +34,10 @@ widths, unreduced:
 
 Phases (any failure exits nonzero and prints no result line):
   1. the card, its power limit, and the kernels' build (ptxas report: the
-     registers and spills of the bf16 tensor-core kernels); ``cuobjdump
-     -sass`` of the matmul library must show HMMA, the tensor cores'
-     instruction, in every bf16 kernel;
+     registers and spills of the bf16 tensor-core kernels and of the gemv
+     kernels); ``cuobjdump -sass`` of the matmul library must show HMMA, the
+     tensor cores' instruction, in every bf16 kernel, and that of the gemv
+     library a 128-bit global load in every kernel with 16-byte vectors;
   2. each kernel against its plain PyTorch version on the same device
      tensors: qmatmul exact, f32 and bf16 matmul rtol 1e-4 / atol 1e-3
      (another sum order; bf16 products are exact in f32), bf16 op outputs
@@ -44,7 +45,10 @@ Phases (any failure exits nonzero and prints no result line):
      scores, q scaled by Q_SHARP); TF32 is off for the plain versions'
      products. The bf16 matmul kernels at W3, at every block the bf16 LM
      head's space offers (so at its tuned block), and at blocks off the
-     power-of-two ladder (bn 48, bk 16, bm 128, 80 x 112);
+     power-of-two ladder (bn 48, bk 16, bm 128, 80 x 112); both gemv
+     entries, f32 and bf16, at rtol 1e-4 / atol 1e-3 at every bn the
+     decode step's spaces offer, bk 16 and 1024, J = 1 at odd pn and both
+     sides of _gemv_kernel's cluster choice;
   3. tune W1-W3 (32 trials, seed 0) with launch counts zeroed just before
      and read just after; no candidate may be INVALID, dispatch must then
      resolve "tuned" and the tuned kernel's output must equal the plain
@@ -58,12 +62,15 @@ Phases (any failure exits nonzero and prints no result line):
      their own launch counts;
   4c. the same for MobileLLM-125M bf16 prefill, with its own launch counts;
      ``_acc_kernel`` must launch there;
-  5. per kernel: launches on the main paths (phases 3, 4, 4b and 4c), time,
+  5. the timer's floor (a one-element fill_, a 16x16 gemv); _gemv_kernel at
+     the down projection with and without its cluster; per kernel:
+     launches on the main paths (phases 3, 4, 4b and 4c), time,
      plain version's time, library call's time and the card's bound, as one
-     JSON line (``_acc_kernel`` and ``_noacc_kernel`` at W3, ``_fa_kernel``
-     at MobileLLM's prefill; ``_acc_kernel`` at the bf16 LM head and
-     ``_fa_kernel`` at sequence 2048, the best rung of its ladder, are on
-     the line of all rows).
+     JSON line (``_acc_kernel`` and ``_noacc_kernel`` at W3, the gemv
+     kernels at the LM head, ``_fa_kernel`` at MobileLLM's prefill;
+     ``_acc_kernel`` at the bf16 LM head, both gemv kernels at the decode
+     step's down and up projections and ``_fa_kernel`` at sequence 2048,
+     the best rung of its ladder, are on the line of all rows).
 The last line is {"ok": true, "device": {...}}.
 
 Run:  python3 chip_smoke.py      (needs one CUDA card and nvcc)
@@ -140,14 +147,15 @@ def tensor_core_kernel(mangled: str) -> str | None:
             f"{'acc' if acc == '1' else 'noacc'}>")
 
 
-def tensor_core_ptxas(log: str) -> dict:
+def ptxas_resources(log: str, label) -> dict:
     """Registers and spill bytes (stores, loads) that ``ptxas -v`` reports
-    for each bf16 tensor-core matmul kernel, by its readable name."""
+    for each kernel that ``label`` (mangled name -> readable name or None)
+    names, by its readable name."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            cur = tensor_core_kernel(m.group(1))
+            cur = label(m.group(1))
             continue
         if cur is None:
             continue
@@ -193,6 +201,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_blocked, plain_version as fa_plain)
+    from repro_torch.kernels.gemv import ops as gemv_ops
     from repro_torch.kernels.gemv import plain as gemv_plain
     from repro_torch.kernels.gemv.kernel import gemv_blocked
     from repro_torch.kernels.matmul import plain as mm_plain
@@ -224,7 +233,7 @@ def main() -> int:
             print("  " + line.strip())
     print("(shared memory is dynamic: smem_bytes(bm, bn, bk) per launch)")
     print("bf16 tensor-core kernels (matmul.cu), ptxas and SASS:")
-    resources = tensor_core_ptxas(_build.build_log())
+    resources = ptxas_resources(_build.build_log(), tensor_core_kernel)
     sass = {tensor_core_kernel(name): body
             for name, body in _build.sass("matmul").items()
             if tensor_core_kernel(name)}
@@ -239,6 +248,22 @@ def main() -> int:
               f"instructions")
         if n_hmma == 0:
             raise RuntimeError(f"{label} has no HMMA: not on the tensor cores")
+    print("gemv kernels (gemv.cu), ptxas and SASS:")
+    resources = ptxas_resources(_build.build_log(), gemv_ops.kernel_label)
+    sass = {gemv_ops.kernel_label(name): body
+            for name, body in _build.sass("gemv").items()
+            if gemv_ops.kernel_label(name)}
+    if len(sass) != 8 or set(sass) != set(resources):
+        raise RuntimeError(f"gemv kernels in the SASS {sorted(sass)} and the "
+                           f"ptxas report {sorted(resources)} differ")
+    for label, body in sorted(sass.items()):
+        n_128 = len(gemv_ops.LDG_128.findall(body))
+        res = resources[label]
+        print(f"  {label}: {res['registers']} registers, spill stores/loads "
+              f"{res['spills'][0]}/{res['spills'][1]} bytes, {n_128} 128-bit "
+              f"global loads")
+        if ",1," not in label and n_128 == 0:
+            raise RuntimeError(f"{label} has no 128-bit global load")
 
     wl1 = W.qmatmul(3136, 64, 576)
     wl2 = W.qmatmul(64, 32000, 576)
@@ -246,6 +271,8 @@ def main() -> int:
     lm_head_mm = W.matmul(64, 32000, 576, "bfloat16")   # MobileLLM prefill
     names = {wl1.key(): "W1", wl2.key(): "W2", wl3.key(): "W3"}
     lm_head = W.gemv(32000, 576, "bfloat16")   # MobileLLM-125M decode
+    down_proj = W.gemv(576, 1536, "bfloat16")
+    up_proj = W.gemv(1536, 576, "bfloat16")
     dw1 = W.vmacc(12544, 32)                   # MobileNetV2's first dw stage
 
     # ---------------------------------------------------------------- 2 ----
@@ -406,6 +433,49 @@ def main() -> int:
         check_gemv(W.gemv(1536, 576, "float32"),
                    dict(variant="vl_128", bn=128, bk=96, accumulate=acc),
                    "up f32")
+
+    def check_gemv_block(n, k, block, label):
+        """Both gemv entries at ``block``, f32 and bf16, on random operands
+        padded to it, against the plain version at rtol 1e-4 / atol 1e-3
+        (bf16 products are exact in f32: only the sum order differs)."""
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        pn, pk = (math.ceil(d / b) * b for d, b in zip((n, k), block))
+        diffs = []
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(1, pk, device="cuda", generator=gen).to(dtype)
+            w = torch.randn(pk, pn, device="cuda", generator=gen).to(dtype)
+            want = gemv_plain.gemv_plain(x, w, block[1]).double()
+            for name, acc in (("_gemv_kernel", True),
+                              ("_gemv_noacc_kernel", False)):
+                got = gemv_blocked(x, w, block, acc)
+                torch.cuda.synchronize()
+                diff = (got.double() - want).abs()
+                if not bool(torch.all(diff <= 1e-3 + 1e-4 * want.abs())):
+                    raise RuntimeError(f"{name} {label} {block} {dtype} "
+                                       f"disagrees with its plain version")
+                diffs.append(float(diff.max()))
+                err[name] = max(err[name], diffs[-1])
+        cluster = gemv_ops.plan(pn, pk, *block, "bfloat16", True).cluster
+        print(f"  gemv {label} {block} padded {(pn, pk)}, bf16 acc cluster "
+              f"{cluster}: max |diff| over f32/bf16 x acc/noacc "
+              f"{max(diffs):.3g} (rtol 1e-4, atol 1e-3) ok")
+
+    # every bn the decode spaces offer, bk 16 and 1024, J = 1 at odd pn and
+    # both sides of _gemv_kernel's cluster choice (tests/test_torch_cuda.py)
+    for (n, k), block, label in (
+            ((960, 576), (16, 96), "QKV"), ((960, 576), (32, 192), "QKV"),
+            ((960, 576), (48, 48), "QKV"), ((960, 576), (80, 288), "QKV"),
+            ((960, 576), (96, 64), "QKV"), ((576, 1536), (128, 384), "down"),
+            ((576, 1536), (16, 16), "down"), ((576, 1536), (16, 1024), "down"),
+            ((576, 1536), (128, 1024), "down"),
+            ((576, 1536), (16, 256), "down"), ((101, 300), (1, 16), "J=1"),
+            ((2096, 2304), (16, 64), "131 blocks"),
+            ((2112, 2304), (16, 64), "132 blocks"),
+            ((16, 4096), (16, 16), "one block"),
+            ((16, 1024), (16, 16), "one block, short k"),
+            ((32000, 576), (32, 16), "LM head"),
+            ((32000, 576), (16, 48), "LM head")):
+        check_gemv_block(n, k, block, label)
     check_vmacc(dw1, fixed_library_schedule(dw1, H100).as_dict(),
                 "dw1 (library schedule)")
     check_vmacc(dw1, dict(variant="vl_16x128", br=16, bc=16), "dw1")
@@ -543,8 +613,10 @@ def main() -> int:
                     rtol, atol = 2e-3, 2e-3
                 else:
                     rtol, atol = 5e-2, 5e-2
+                entry = "" if params.accumulate else " noacc"
                 close(got.cpu(), want, rtol, atol,
-                      f"  tuned x{rep.count} {wl.key()} {params.block} vs plain")
+                      f"  tuned x{rep.count} {wl.key()} {params.block}{entry} "
+                      f"vs plain")
                 lib = baseline_latency(wl)
                 t_lib += rep.count * lib
                 print(f"    x{rep.count}: tuned {rep.best_latency*1e6:.2f} us, "
@@ -651,6 +723,14 @@ def main() -> int:
                         accumulate)
 
     rows = []
+    # The timer's floor: the least any launch measures here (L2 flushed,
+    # events around one launch)
+    one = torch.zeros(1, device="cuda")
+    xs = torch.ones(1, 16, device="cuda")
+    ws = torch.ones(16, 16, device="cuda")
+    print(f"  timer floor: one-element fill_ "
+          f"{timer(lambda t: t.fill_(1.0), (one,))*1e6:.2f} us, 16x16 gemv "
+          f"(16, 16) {timer(gemv_blocked, (xs, ws, (16, 16)))*1e6:.2f} us")
 
     def row(name, wl, params, label):
         x = runner.inputs(wl)
@@ -723,15 +803,38 @@ def main() -> int:
         "MobileLLM bf16 prefill LM head 64x32000x576")
     row("_qmm_kernel", wl1, best_of(wl1), "W1")
     qmm2 = row("_qmm_kernel", wl2, best_of(wl2), "W2")
-    gemv_acc = row("_gemv_kernel", lm_head,
-                   net_best_of(lm_head, accumulate=True), "LM head")
-    try:
-        noacc_params = net_best_of(lm_head, accumulate=False)
-    except RuntimeError as exc:   # the session measured no noacc LM head
-        noacc_params = concretize(lm_head, H100, Schedule.fixed(
-            variant="vl_128", bn=128, bk=64, accumulate=False))
-        print(f"  {exc}; timing the block {noacc_params.block}")
-    gemv_noacc = row("_gemv_noacc_kernel", lm_head, noacc_params, "LM head")
+    def gemv_best(wl, accumulate):
+        """The decode session's fastest block of one entry, or the 128 x 64
+        block where the session measured none of that entry."""
+        try:
+            return net_best_of(wl, accumulate=accumulate)
+        except RuntimeError as exc:
+            params = concretize(wl, H100, Schedule.fixed(
+                variant="vl_128", bn=128, bk=64, accumulate=accumulate))
+            print(f"  {exc}; timing the block {params.block}")
+            return params
+
+    gemv_acc = row("_gemv_kernel", lm_head, gemv_best(lm_head, True),
+                   "LM head")
+    gemv_noacc = row("_gemv_noacc_kernel", lm_head,
+                     gemv_best(lm_head, False), "LM head")
+    for wl, label in ((down_proj, "down projection 576x1536"),
+                      (up_proj, "up projection 1536x576")):
+        for name, acc in (("_gemv_kernel", True),
+                          ("_gemv_noacc_kernel", False)):
+            row(name, wl, gemv_best(wl, acc), label)
+    # _gemv_kernel at the down projection with K split over a cluster by
+    # its rule and over none (gemv_launch_capped): what the cluster buys
+    x = runner.inputs(down_proj)
+    for block in sorted({gemv_best(down_proj, True).block, (16, 256)}):
+        pn, pk = (math.ceil(d / b) * b for d, b in zip(down_proj.dims, block))
+        xp = pad2(x[0], 1, pk).contiguous()
+        wp = pad2(x[1], pk, pn).contiguous()
+        c = gemv_ops.plan(pn, pk, *block, "bfloat16", True).cluster
+        t_c = timer(gemv_blocked, (xp, wp, block, True))
+        t_1 = timer(gemv_blocked, (xp, wp, block, True, 1))
+        print(f"  _gemv_kernel down projection {block}: {c}-block clusters "
+              f"{t_c*1e6:.2f} us, no cluster {t_1*1e6:.2f} us")
     vmacc_row = row("_vmacc_kernel", dw1, net_best_of(dw1), "dw1")
     fa_row = row("_fa_kernel", gqa, net_best_of(gqa),
                  "MobileLLM prefill seq 64")

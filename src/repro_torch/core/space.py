@@ -922,6 +922,23 @@ def matmul_block_bytes(workload: Workload, hw: HardwareConfig, bm: int,
     return bm * bk * ib + bk * bn * ib + bm * bn * ob + bm * bn * 4
 
 
+def gemv_block_bytes(workload: Workload, hw: HardwareConfig, bn: int,
+                     bk: int) -> int:
+    """On-chip bytes of one (bn, bk) gemv block — nondecreasing in each
+    block dimension (the static analyzer's floor relies on it).
+
+    TPU configs: the x and w blocks, the output block and the f32 VMEM
+    accumulator. CUDA configs: the shared memory the kernel asks for (its
+    sums are in registers, w streams through them)."""
+    if isinstance(hw, CudaHardwareConfig):
+        from repro_torch.kernels.gemv import ops as gemv_ops  # lazy
+
+        return gemv_ops.smem_bytes(bn, bk, workload.dtype)
+    ib = dtype_bytes(workload.dtype)
+    ob = dtype_bytes(workload.out_dtype)
+    return bk * ib + bk * bn * ib + bn * ob + bn * 4
+
+
 def attention_block_bytes(workload: Workload, hw: HardwareConfig, bq: int,
                           bkv: int, pd: int) -> int:
     """On-chip bytes of one (bq, bkv) attention block at padded head dim
@@ -995,7 +1012,7 @@ def _concretize(workload: Workload, hw: HardwareConfig, schedule: Schedule,
         pn, pk = round_up(n, bn), round_up(k, bk)
         grid = (pn // bn, pk // bk)
         acc = bool(schedule.get("accumulate", True))
-        vmem = bk * ib + bk * bn * ib + bn * ob + bn * 4
+        vmem = gemv_block_bytes(workload, hw, bn, bk)
         params = KernelParams(op, dims, (pn, pk), (bn, bk), grid, "nk", acc,
                               workload.dtype, workload.out_dtype, vmem, True)
     elif op == "vmacc":

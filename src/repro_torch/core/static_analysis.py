@@ -197,7 +197,7 @@ def _variant_vmem_floor(workload: Workload, hw: HardwareConfig,
     generator's hard floor — bn >= 1, bc >= lane — and stays sound). The
     footprints are the ones ``space.concretize`` computes and the dynamic
     ``postproc_vmem_fit`` checks (``space.matmul_block_bytes`` for
-    matmul)."""
+    matmul, ``space.gemv_block_bytes`` for gemv)."""
     op = workload.op
     ib = dtype_bytes(workload.dtype)
     ob = dtype_bytes(workload.out_dtype)
@@ -211,8 +211,8 @@ def _variant_vmem_floor(workload: Workload, hw: HardwareConfig,
             return space_lib.matmul_block_bytes(workload, hw, bm, bn, bk)
         if op == "gemv":
             bk = min(program.candidates("bk", ctx))
-            bn = 1  # the J=1 row form is the generator's hard floor
-            return bk * ib + bk * bn * ib + bn * ob + 4 * bn
+            # the J=1 row form (bn = 1) is the generator's hard floor
+            return space_lib.gemv_block_bytes(workload, hw, 1, bk)
         if op == "vmacc":
             br = min(program.candidates("br", ctx))
             bc = lane  # bc candidates are lane multiples (divisor domain)

@@ -4,7 +4,10 @@
 ``_gemv_noacc_kernel`` (``accumulate=False``) of the JAX package's
 ``kernels/gemv/kernel.py``. On a CUDA tensor it launches the kernel and
 counts the launch in :data:`launches`; on a CPU tensor it runs the plain
-version (``plain.py``), and only there.
+version (``plain.py``), and only there. The kernels read w with 16-byte
+vector loads (each thread owns 16 bytes of neighbouring columns, and the
+block's threads split the k rows: ``csrc/gemv.cu``), so a w whose storage
+does not start on 16 bytes is copied first.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ def _lib() -> ctypes.CDLL:
         i, p = ctypes.c_int, ctypes.c_void_p
         lib.gemv_launch.argtypes = [i, i, p, p, p, i, i, i, i, p]
         lib.gemv_launch.restype = ctypes.c_int
+        lib.gemv_launch_capped.argtypes = [i, i, p, p, p, i, i, i, i, i, p]
+        lib.gemv_launch_capped.restype = ctypes.c_int
     return lib
 
 
@@ -53,10 +58,13 @@ def check_operands(x: torch.Tensor, w: torch.Tensor,
 
 
 def gemv_blocked(x: torch.Tensor, w: torch.Tensor, block: tuple[int, int],
-                 accumulate: bool = True) -> torch.Tensor:
+                 accumulate: bool = True,
+                 max_cluster: int | None = None) -> torch.Tensor:
     """Padded ``x (1, pk) @ w (pk, pn)`` with the schedule's (bn, bk) block
     and accumulate choice; returns the (1, pn) product in float32, for
-    bf16 operands too (as the Pallas kernels)."""
+    bf16 operands too (as the Pallas kernels). ``max_cluster`` caps the
+    blocks ``_gemv_kernel`` splits K over (``ops.plan``); None keeps the
+    kernel's own rule, 1 splits K over none (for measuring the split)."""
     check_operands(x, w, block)
     bn, bk = block
     if x.device.type == "cpu":
@@ -64,12 +72,17 @@ def gemv_blocked(x: torch.Tensor, w: torch.Tensor, block: tuple[int, int],
     if x.device.type != "cuda":
         raise ValueError(f"no gemv kernel for device {x.device}")
     pk, pn = w.shape
+    if w.data_ptr() % 16:   # a view into another tensor's storage
+        w = w.clone()
     out = torch.empty((1, pn), dtype=torch.float32, device=x.device)
     lib = _lib()
-    code = lib.gemv_launch(
-        int(accumulate), _DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(),
-        out.data_ptr(), pn, pk, bn, bk,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    args = (int(accumulate), _DTYPE_CODE[x.dtype], x.data_ptr(),
+            w.data_ptr(), out.data_ptr(), pn, pk, bn, bk)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if max_cluster is None:
+        code = lib.gemv_launch(*args, stream)
+    else:
+        code = lib.gemv_launch_capped(*args, max_cluster, stream)
     name = "_gemv_kernel" if accumulate else "_gemv_noacc_kernel"
     _build.check(lib, name, code)
     launches[name] += 1

@@ -246,7 +246,20 @@ def _elementwise_operands(r, c, dtype, device, seed=0):
     ((960, 576), (16, 576)),       # QKV, one k step
     ((576, 1536), (64, 96)),
     ((112, 320), (1, 32)),         # the J = 1 row kernel
-    ((2048, 64), (1024, 16)),      # one thread per column
+    ((2048, 64), (1024, 16)),      # the widest block
+    # every bn the H100 space offers MobileLLM-125M's decode step, narrow n
+    ((960, 576), (16, 96)), ((960, 576), (32, 192)), ((960, 576), (48, 48)),
+    ((960, 576), (80, 288)), ((960, 576), (96, 64)), ((640, 1536), (128, 384)),
+    ((576, 1536), (16, 16)),       # bk 16: 96 k steps
+    ((576, 2048), (16, 1024)),     # bk 1024, k 1536 padded to 2048
+    ((640, 2048), (128, 1024)),
+    ((101, 304), (1, 16)),         # J = 1 at odd pn: rows not 16-byte aligned
+    # _gemv_kernel's cluster (ops.plan): 131 column blocks split K over 2
+    # blocks, 132 do not; one column block splits K over 4 (bf16) or 8
+    # (f32) blocks, or over none (bf16) or 2 (f32) when k is short
+    ((2096, 2304), (16, 64)), ((2112, 2304), (16, 64)),
+    ((16, 4096), (16, 16)), ((16, 1024), (16, 16)),
+    ((576, 1536), (16, 256)),      # N1's down projection, 2-block clusters
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("accumulate", [True, False])
@@ -259,6 +272,39 @@ def test_gemv_kernels_match_plain(cuda, shape, block, dtype, accumulate):
     # bf16 products are exact in f32: both dtypes differ by sum order only
     torch.testing.assert_close(got, gemv_plain.gemv_plain(x, w, block[1]),
                                rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("max_cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemv_cluster_cap_keeps_the_sums(cuda, max_cluster, dtype):
+    """gemv_launch_capped: _gemv_kernel with K split over at most
+    ``max_cluster`` blocks (one column block, so the rule splits up to the
+    cap) equals the plain version; a cap outside 1-8 is refused."""
+    x, w = _vector_operands(16, 8192, dtype, cuda)
+    got = gemv_blocked(x, w, (16, 16), True, max_cluster)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, gemv_plain.gemv_plain(x, w, 16),
+                               rtol=1e-4, atol=1e-3)
+    assert gemv_ops.plan(16, 8192, 16, 16, "bfloat16" if dtype ==
+                         torch.bfloat16 else "float32", True,
+                         max_cluster).cluster == max_cluster
+    for bad in (0, gemv_ops.MAX_CLUSTER + 1):
+        with pytest.raises(KernelLaunchError) as err:
+            gemv_blocked(x, w, (16, 16), True, bad)
+        assert err.value.refused
+
+
+def test_gemv_vector_kernels_issue_128_bit_loads(cuda):
+    """The kernels with 16-byte vectors (both dtypes, both entries) read w
+    with 128-bit global loads in the built SASS."""
+    functions = {gemv_ops.kernel_label(name): body
+                 for name, body in _build.sass("gemv").items()
+                 if gemv_ops.kernel_label(name)}
+    assert len(functions) == 8, sorted(functions)  # 2 dtypes x V x 2 entries
+    vector = [label for label in functions if ",1," not in label]
+    assert len(vector) == 4
+    for label in vector:
+        assert gemv_ops.LDG_128.search(functions[label]), label
 
 
 @pytest.mark.parametrize("shape,block", [
@@ -281,7 +327,8 @@ def test_vmacc_kernel_matches_plain(cuda, shape, block, dtype):
 
 @pytest.mark.parametrize("inside", [True, False], ids=["inside", "beyond"])
 def test_gemv_gate_matches_kernel_thread_limit(cuda, inside):
-    """One thread per output column at most 1024 threads: the gate and the
+    """A block's 256 threads cover at most 256 16-byte vectors of columns,
+    1024 f32 columns (bf16 is held to the same limit): the gate and the
     kernel's own check agree on both sides of the limit."""
     bn = gemv_ops.MAX_BN if inside else gemv_ops.MAX_BN + 16
     assert gemv_ops.supports_block_shape(bn, 16, 16) is inside

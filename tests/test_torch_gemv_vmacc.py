@@ -311,6 +311,7 @@ def test_feasibility_matches_reference(name, op, dims, dtype):
 # ------------------------------------------------ H100: analyzer and gate ----
 
 H100_CASES = [W.gemv(32000, 576, "bfloat16"), W.gemv(960, 576, "bfloat16"),
+              W.gemv(576, 1536, "bfloat16"),   # MobileLLM-125M's down proj
               W.gemv(100, 300), W.gemv(1, 64), W.vmacc(12544, 32),
               W.vmacc(49, 960), W.vmacc(33, 17)]
 
