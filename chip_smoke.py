@@ -32,12 +32,19 @@ widths, unreduced:
   at 5 unique shapes, the 64 x 32000 x 576 LM head among them, beside the
   f32 attention) through ``TuningSession`` at pipeline depth 2.
 
+The int8 qmatmul and the vmacc kernels take their operands at the real
+size (``qmatmul_ragged``, ``vmacc_ragged``: the wrappers pad nothing);
+their padded entries (``qmatmul_blocked``, ``vmacc_blocked``) stay the
+Pallas kernels' contract and are held too.
+
 Phases (any failure exits nonzero and prints no result line):
   1. the card, its power limit, and the kernels' build (ptxas report: the
-     registers and spills of the bf16 tensor-core kernels and of the gemv
-     kernels); ``cuobjdump -sass`` of the matmul library must show HMMA, the
-     tensor cores' instruction, in every bf16 kernel, and that of the gemv
-     library a 128-bit global load in every kernel with 16-byte vectors;
+     registers and spills of the bf16 tensor-core kernels, the gemv, the
+     qmatmul and the vmacc kernels); ``cuobjdump -sass`` of the matmul
+     library must show HMMA, the tensor cores' instruction, in every bf16
+     kernel, that of the qmatmul library IMMA (the integer one) in every
+     kernel, and those of the gemv and vmacc libraries a 128-bit global
+     load in every kernel with 16-byte vectors;
   2. each kernel against its plain PyTorch version on the same device
      tensors: qmatmul exact, f32 and bf16 matmul rtol 1e-4 / atol 1e-3
      (another sum order; bf16 products are exact in f32), bf16 op outputs
@@ -48,7 +55,12 @@ Phases (any failure exits nonzero and prints no result line):
      power-of-two ladder (bn 48, bk 16, bm 128, 80 x 112); both gemv
      entries, f32 and bf16, at rtol 1e-4 / atol 1e-3 at every bn the
      decode step's spaces offer, bk 16 and 1024, J = 1 at odd pn and both
-     sides of _gemv_kernel's cluster choice;
+     sides of _gemv_kernel's cluster choice; the unpadded _qmm_kernel
+     exact at MobileNetV2's, MobileLLM-125M prefill's and W1/W2's shapes
+     (QMM_SHAPES), at every block their H100 spaces offer, with K split by
+     the kernel's rule and over no cluster, and on operands off the 16-byte
+     grain; the unpadded _vmacc_kernel at 1e-5 on ragged shapes, f32 and
+     bf16, vector and scalar paths (a view at an odd offset);
   3. tune W1-W3 (32 trials, seed 0) with launch counts zeroed just before
      and read just after; no candidate may be INVALID, dispatch must then
      resolve "tuned" and the tuned kernel's output must equal the plain
@@ -63,14 +75,22 @@ Phases (any failure exits nonzero and prints no result line):
   4c. the same for MobileLLM-125M bf16 prefill, with its own launch counts;
      ``_acc_kernel`` must launch there;
   5. the timer's floor (a one-element fill_, a 16x16 gemv); _gemv_kernel at
-     the down projection with and without its cluster; per kernel:
+     the down projection and _qmm_kernel at 64 x 576 x 1536 with and
+     without their clusters; a torch.profiler count of the card's kernels in
+     one ``kernels.build(wl, params)`` call at MobileNetV2's 196 x 192 vmacc
+     and 12544 x 32 x 27 qmatmul, which must be 1; per kernel:
      launches on the main paths (phases 3, 4, 4b and 4c), time,
      plain version's time, library call's time and the card's bound, as one
      JSON line (``_acc_kernel`` and ``_noacc_kernel`` at W3, the gemv
      kernels at the LM head, ``_fa_kernel`` at MobileLLM's prefill;
      ``_acc_kernel`` at the bf16 LM head, both gemv kernels at the decode
-     step's down and up projections and ``_fa_kernel`` at sequence 2048,
-     the best rung of its ladder, are on the line of all rows).
+     step's down and up projections, ``_fa_kernel`` at sequence 2048, the
+     best rung of its ladder, ``_qmm_kernel`` at MobileLLM prefill's 64 x
+     576 x 1536 and MobileNetV2's classifier 1 x 1000 x 1280,
+     ``_vmacc_kernel`` at 196 x 192 and the f32 ``_acc_kernel`` and
+     ``_noacc_kernel`` at W3 are on the line of all rows). A row's bound
+     counts the bytes and operations of the operands the path hands the
+     kernel: the real, unpadded ones for qmatmul and vmacc.
 The last line is {"ok": true, "device": {...}}.
 
 Run:  python3 chip_smoke.py      (needs one CUDA card and nvcc)
@@ -102,6 +122,11 @@ SLICE2 = ("_qmm_kernel", "_gemv_kernel", "_gemv_noacc_kernel",
           "_vmacc_kernel")
 SLICE3 = ("_qmm_kernel", "_fa_kernel")
 SLICE4 = ("_acc_kernel",)
+# The unpadded _qmm_kernel's shapes in phase 2: MobileNetV2 int8 (N2),
+# MobileLLM-125M int8 prefill (N4), W1 and W2.
+QMM_SHAPES = ((12544, 32, 27), (784, 144, 24), (3136, 24, 96),
+              (49, 160, 576), (1, 1000, 1280), (64, 576, 1536),
+              (3136, 64, 576), (64, 32000, 576))
 REPLACES = {
     "_acc_kernel": "src/repro/kernels/matmul/kernel.py:25",
     "_noacc_kernel": "src/repro/kernels/matmul/kernel.py:42",
@@ -207,11 +232,14 @@ def main() -> int:
     from repro_torch.kernels.matmul import plain as mm_plain
     from repro_torch.kernels.matmul.kernel import matmul_blocked
     from repro_torch.kernels.matmul.ops import pad2
+    from repro_torch.kernels.qmatmul import ops as qmm_ops
     from repro_torch.kernels.qmatmul import plain as qmm_plain
-    from repro_torch.kernels.qmatmul.kernel import qmatmul_blocked
+    from repro_torch.kernels.qmatmul.kernel import (qmatmul_blocked,
+                                                    qmatmul_ragged)
     from repro_torch.kernels.qmatmul.ops import DEFAULT_SCALE
+    from repro_torch.kernels.vmacc import ops as vmacc_ops
     from repro_torch.kernels.vmacc import plain as vmacc_plain
-    from repro_torch.kernels.vmacc.kernel import vmacc_blocked
+    from repro_torch.kernels.vmacc.kernel import vmacc_blocked, vmacc_ragged
     from repro_torch.runtime.serve_loop import decode_ops
 
     # ---------------------------------------------------------------- 1 ----
@@ -263,6 +291,38 @@ def main() -> int:
               f"{res['spills'][0]}/{res['spills'][1]} bytes, {n_128} 128-bit "
               f"global loads")
         if ",1," not in label and n_128 == 0:
+            raise RuntimeError(f"{label} has no 128-bit global load")
+    print("int8 tensor-core qmatmul kernels (qmatmul.cu), ptxas and SASS:")
+    resources = ptxas_resources(_build.build_log(), qmm_ops.kernel_label)
+    sass = {qmm_ops.kernel_label(name): body
+            for name, body in _build.sass("qmatmul").items()
+            if qmm_ops.kernel_label(name)}
+    if len(sass) != 4 or set(sass) != set(resources):
+        raise RuntimeError(f"qmatmul kernels in the SASS {sorted(sass)} and "
+                           f"the ptxas report {sorted(resources)} differ")
+    for label, body in sorted(sass.items()):
+        n_imma = len(qmm_ops.IMMA.findall(body))
+        res = resources[label]
+        print(f"  {label}: {res['registers']} registers, spill stores/loads "
+              f"{res['spills'][0]}/{res['spills'][1]} bytes, {n_imma} IMMA "
+              f"instructions")
+        if n_imma == 0:
+            raise RuntimeError(f"{label} has no IMMA: not on the tensor cores")
+    print("vmacc kernels (vmacc.cu), ptxas and SASS:")
+    resources = ptxas_resources(_build.build_log(), vmacc_ops.kernel_label)
+    sass = {vmacc_ops.kernel_label(name): body
+            for name, body in _build.sass("vmacc").items()
+            if vmacc_ops.kernel_label(name)}
+    if len(sass) != 4 or set(sass) != set(resources):
+        raise RuntimeError(f"vmacc kernels in the SASS {sorted(sass)} and the "
+                           f"ptxas report {sorted(resources)} differ")
+    for label, body in sorted(sass.items()):
+        n_128 = len(gemv_ops.LDG_128.findall(body))
+        res = resources[label]
+        print(f"  {label}: {res['registers']} registers, spill stores/loads "
+              f"{res['spills'][0]}/{res['spills'][1]} bytes, {n_128} 128-bit "
+              f"global loads")
+        if not label.endswith(",1>") and n_128 == 0:
             raise RuntimeError(f"{label} has no 128-bit global load")
 
     wl1 = W.qmatmul(3136, 64, 576)
@@ -483,6 +543,86 @@ def main() -> int:
     check_vmacc(odd_dw, dict(variant="vl_min", br=16, bc=80), "odd 49x960")
     check_vmacc(odd_dw, dict(variant="vl_32x128", br=32, bc=128),
                 "odd 49x960")
+
+    def at_offset(t, offset):
+        """A contiguous copy of ``t`` whose storage starts ``offset``
+        elements into a larger buffer (data_ptr() off the 16-byte grain for
+        an odd offset)."""
+        buf = torch.zeros(t.numel() + offset + 16, dtype=t.dtype,
+                          device=t.device)
+        view = buf[offset:offset + t.numel()].view(t.shape)
+        view.copy_(t)
+        return view
+
+    def check_qmm_ragged(dims, blocks, label, offsets=(0, 0)):
+        """The unpadded _qmm_kernel at each block, with K split by the
+        kernel's rule and over no cluster, exact against the plain version
+        on the same unpadded operands (x and w ``offsets`` elements into
+        their buffers). One line per shape."""
+        x, w, b = device_inputs(W.qmatmul(*dims))
+        x, w = at_offset(x, offsets[0]), at_offset(w, offsets[1])
+        clusters, widths = set(), set()
+        for block in blocks:
+            want = qmm_plain.qmatmul_plain(x, w, b, DEFAULT_SCALE, block[2])
+            for cap in (None, 1):
+                got = qmatmul_ragged(x, w, b, DEFAULT_SCALE, block, cap)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise RuntimeError(f"_qmm_kernel {label} {dims} {block} "
+                                       f"cap {cap} offsets {offsets} "
+                                       f"disagrees with its plain version")
+            p = qmm_ops.plan(*dims, *block, x.data_ptr(), w.data_ptr())
+            clusters.add(p.cluster)
+            widths.add((p.vx, p.vw))
+        print(f"  _qmm_kernel unpadded {label} {dims}: {len(blocks)} blocks "
+              f"x (rule, no split), clusters {sorted(clusters)}, copy widths "
+              f"(x, w) {sorted(widths)}: exact ok")
+
+    for dims in QMM_SHAPES:
+        wl = W.qmatmul(*dims)
+        blocks = sorted({concretize(wl, H100, Schedule.fixed(**t)).block
+                         for t in space_for(wl, H100).traces()})
+        check_qmm_ragged(dims, blocks, "every space block")
+    for offsets in ((1, 0), (0, 1), (8, 4), (4, 8)):
+        check_qmm_ragged((64, 576, 1536), [(64, 64, 64), (16, 32, 32)],
+                         f"offsets {offsets}", offsets)
+    check_qmm_ragged((12544, 32, 27), [(32, 32, 32)], "offsets (2, 2)",
+                     (2, 2))
+
+    def check_vmacc_ragged(shape, blocks, dtype, offset):
+        """The unpadded _vmacc_kernel at each block on arrays ``offset``
+        elements into their buffers, against the plain version at 1e-5."""
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        a, b, c = (at_offset(torch.randn(*shape, device="cuda",
+                                         generator=gen).to(dtype), offset)
+                   for _ in range(3))
+        aligned = all(t.data_ptr() % 16 == 0 for t in (a, b, c))
+        name = "float32" if dtype == torch.float32 else "bfloat16"
+        paths, diffs = set(), []
+        for block in blocks:
+            got = vmacc_ragged(a, b, c, block)
+            torch.cuda.synchronize()
+            want = vmacc_plain.vmacc_plain(a, b, c).double()
+            diff = (got.double() - want).abs()
+            if not bool(torch.all(diff <= 1e-5 + 1e-5 * want.abs())):
+                raise RuntimeError(f"_vmacc_kernel {shape} {block} {name} "
+                                   f"offset {offset} disagrees with its plain "
+                                   f"version")
+            diffs.append(float(diff.max()))
+            paths.add("vector" if vmacc_ops.plan(*shape, *block, name,
+                                                 aligned).v > 1 else "scalar")
+        err["_vmacc_kernel"] = max(err["_vmacc_kernel"], max(diffs))
+        print(f"  _vmacc_kernel unpadded {shape} {name} offset {offset}, "
+              f"{len(blocks)} blocks, {'/'.join(sorted(paths))} path: max "
+              f"|diff| {max(diffs):.3g} (rtol 1e-5, atol 1e-5) ok")
+
+    for shape, blocks in (((196, 192), [(16, 128), (32, 16), (16, 48)]),
+                          ((49, 960), [(16, 128), (32, 64)]),
+                          ((33, 17), [(16, 16), (32, 32)]),
+                          ((12544, 32), [(16, 32)])):
+        for dtype in (torch.float32, torch.bfloat16):
+            for offset in (0, 1):
+                check_vmacc_ragged(shape, blocks, dtype, offset)
 
     def check_attention(wl, variant, label, q_scale=1.0):
         params = concretize(wl, H100, Schedule.fixed(variant=variant))
@@ -740,12 +880,11 @@ def main() -> int:
             bound, by = bound_ms(args[:3], kern(*args),
                                  attention_visible_ops(wl), wl.dtype)
         elif wl.op == "vmacc":
-            pr, pc = params.padded_dims
-            ap, bp, cp = (pad2(t, pr, pc).contiguous() for t in x)
-            args = (ap, bp, cp, params.block)
-            kern = vmacc_blocked
+            # the unpadded entry, as the wrapper calls it
+            args = (*x, params.block)
+            kern = vmacc_ragged
             plain_fn = lambda *a: vmacc_plain.vmacc_plain(*a[:3])  # noqa: E731
-            bound, by = bound_ms((ap, bp, cp), kern(*args), 2.0 * pr * pc,
+            bound, by = bound_ms(x, kern(*args), 2.0 * math.prod(wl.dims),
                                  wl.dtype)
         elif wl.op == "gemv":
             pn, pk = params.padded_dims
@@ -756,25 +895,22 @@ def main() -> int:
                 a[0], a[1], params.block[1])
             bound, by = bound_ms((xp, wp), kern(*args), 2.0 * pn * pk,
                                  wl.dtype)
+        elif wl.op == "qmatmul":
+            # the unpadded entry, as the wrapper calls it
+            args = (*x, DEFAULT_SCALE, params.block)
+            kern, plain_fn = qmatmul_ragged, (
+                lambda *a: qmm_plain.qmatmul_plain(*a[:4], params.block[2]))
+            bound, by = bound_ms(x, kern(*args), 2.0 * math.prod(wl.dims),
+                                 "int8")
         else:
             pm, pn, pk = params.padded_dims
             xp = pad2(x[0], pm, pk).contiguous()
             wp = pad2(x[1], pk, pn).contiguous()
-            ops = 2.0 * pm * pn * pk
-            if wl.op == "qmatmul":
-                bp = torch.nn.functional.pad(x[2], (0, pn - x[2].shape[0]))
-                args = (xp, wp, bp, DEFAULT_SCALE, params.block)
-                kern, plain_fn = qmatmul_blocked, (
-                    lambda *a: qmm_plain.qmatmul_plain(*a[:4],
-                                                       params.block[2]))
-                bound, by = bound_ms((xp, wp, bp), kern(*args), ops, "int8")
-            else:
-                args = (xp, wp, params.block, params.order,
-                        params.accumulate)
-                kern, plain_fn = matmul_blocked, (
-                    lambda *a: mm_plain.matmul_plain(a[0], a[1],
-                                                     params.block[2]))
-                bound, by = bound_ms((xp, wp), kern(*args), ops, wl.dtype)
+            args = (xp, wp, params.block, params.order, params.accumulate)
+            kern, plain_fn = matmul_blocked, (
+                lambda *a: mm_plain.matmul_plain(a[0], a[1], params.block[2]))
+            bound, by = bound_ms((xp, wp), kern(*args), 2.0 * pm * pn * pk,
+                                 wl.dtype)
         r = {"name": name, "route": "cuda", "source": SOURCE[name],
              "replaces": REPLACES[name],
              "launches": launches[name], "max_abs_err": err[name],
@@ -803,6 +939,26 @@ def main() -> int:
         "MobileLLM bf16 prefill LM head 64x32000x576")
     row("_qmm_kernel", wl1, best_of(wl1), "W1")
     qmm2 = row("_qmm_kernel", wl2, best_of(wl2), "W2")
+    n4_proj, n2_fc = W.qmatmul(64, 576, 1536), W.qmatmul(1, 1000, 1280)
+    n4_row = row("_qmm_kernel", n4_proj, net_best_of(n4_proj),
+                 "MobileLLM int8 prefill 64x576x1536")
+    row("_qmm_kernel", n2_fc, net_best_of(n2_fc),
+        "MobileNetV2 classifier 1x1000x1280")
+    # _qmm_kernel at 64 x 576 x 1536 with K split over a cluster by its rule
+    # and over none (qmatmul_launch_capped): what the split buys
+    x = runner.inputs(n4_proj)
+    for block in sorted({tuple(n4_row["block"]), (64, 64, 64)}):
+        c = qmm_ops.plan(*n4_proj.dims, *block).cluster
+        t_c = timer(qmatmul_ragged, (*x, DEFAULT_SCALE, block))
+        t_1 = timer(qmatmul_ragged, (*x, DEFAULT_SCALE, block, 1))
+        print(f"  _qmm_kernel 64x576x1536 {block}: {c}-block clusters "
+              f"{t_c*1e6:.2f} us, no cluster {t_1*1e6:.2f} us")
+    # f32 on the CUDA cores (csrc/tile.cuh), library call torch.matmul f32
+    # with TF32 off
+    row("_acc_kernel", wl3_f32, concretize(
+        wl3_f32, H100, fixed_library_schedule(wl3_f32, H100)), "W3 f32")
+    row("_noacc_kernel", wl3_f32, concretize(wl3_f32, H100, noacc),
+        "W3 f32")
     def gemv_best(wl, accumulate):
         """The decode session's fastest block of one entry, or the 128 x 64
         block where the session measured none of that entry."""
@@ -836,6 +992,31 @@ def main() -> int:
         print(f"  _gemv_kernel down projection {block}: {c}-block clusters "
               f"{t_c*1e6:.2f} us, no cluster {t_1*1e6:.2f} us")
     vmacc_row = row("_vmacc_kernel", dw1, net_best_of(dw1), "dw1")
+    n2_dw = W.vmacc(196, 192)
+    row("_vmacc_kernel", n2_dw, net_best_of(n2_dw),
+        "MobileNetV2 14x14 dw 196x192")
+
+    def device_kernels(fn, inputs):
+        """Names of the card's kernels that one call of ``fn`` launches
+        (torch.profiler, after a first call that builds and loads)."""
+        fn(*inputs)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn(*inputs)
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    for wl in (n2_dw, W.qmatmul(12544, 32, 27)):
+        params = net_best_of(wl)
+        names_seen = device_kernels(kernels.build(wl, params),
+                                    runner.inputs(wl))
+        print(f"  one kernels.build({wl.key()}, {params.block}) call: "
+              f"{len(names_seen)} kernel(s) on the card {names_seen}")
+        if len(names_seen) != 1:
+            raise RuntimeError(f"{wl.key()}: {len(names_seen)} kernels in "
+                               f"one call, not 1")
     fa_row = row("_fa_kernel", gqa, net_best_of(gqa),
                  "MobileLLM prefill seq 64")
     ladder = {v: runner.run(gqa_long, Schedule.fixed(variant=v))

@@ -171,11 +171,16 @@ def postproc_kernel_support(workload: Workload, hw: HardwareConfig,
     if not isinstance(hw, CudaHardwareConfig):
         return ""
     ok = True
-    if params.op in ("matmul", "qmatmul"):
+    if params.op == "matmul":
         from repro_torch.kernels.matmul import ops as matmul_ops  # lazy
 
         ok = matmul_ops.supports_block_shape(*params.block, params.dtype,
                                              hw.vmem_capacity)
+    elif params.op == "qmatmul":
+        from repro_torch.kernels.qmatmul import ops as qmatmul_ops  # lazy
+
+        ok = qmatmul_ops.supports_block_shape(*params.block,
+                                              hw.vmem_capacity)
     elif params.op == "gemv":
         from repro_torch.kernels.gemv import ops as gemv_ops  # lazy
 
@@ -912,8 +917,13 @@ def matmul_block_bytes(workload: Workload, hw: HardwareConfig, bm: int,
 
     TPU configs: the x and w blocks, the output block and the f32 VMEM
     accumulator. CUDA configs: the shared memory the kernel asks for (the
-    accumulator is in registers)."""
+    accumulator is in registers): ``qmatmul.ops.smem_bytes`` for qmatmul,
+    ``matmul.ops.smem_bytes`` for matmul."""
     if isinstance(hw, CudaHardwareConfig):
+        if workload.op == "qmatmul":
+            from repro_torch.kernels.qmatmul import ops as qmatmul_ops  # lazy
+
+            return qmatmul_ops.smem_bytes(bm, bn, bk)
         from repro_torch.kernels.matmul import ops as matmul_ops  # lazy
 
         return matmul_ops.smem_bytes(bm, bn, bk, workload.dtype)
@@ -939,6 +949,23 @@ def gemv_block_bytes(workload: Workload, hw: HardwareConfig, bn: int,
     return bk * ib + bk * bn * ib + bn * ob + bn * 4
 
 
+def vmacc_block_bytes(workload: Workload, hw: HardwareConfig, br: int,
+                      bc: int) -> int:
+    """On-chip bytes of one (br, bc) vmacc block — nondecreasing in each
+    block dimension (the static analyzer's floor relies on it).
+
+    TPU configs: the a, b, c and output blocks at the wider of the input
+    and output dtypes. CUDA configs: the shared memory the kernel asks for
+    (none: it works in registers)."""
+    if isinstance(hw, CudaHardwareConfig):
+        from repro_torch.kernels.vmacc import ops as vmacc_ops  # lazy
+
+        return vmacc_ops.smem_bytes(br, bc, workload.dtype)
+    ib = dtype_bytes(workload.dtype)
+    ob = dtype_bytes(workload.out_dtype)
+    return 4 * br * bc * max(ib, ob)
+
+
 def attention_block_bytes(workload: Workload, hw: HardwareConfig, bq: int,
                           bkv: int, pd: int) -> int:
     """On-chip bytes of one (bq, bkv) attention block at padded head dim
@@ -960,8 +987,6 @@ def _concretize(workload: Workload, hw: HardwareConfig, schedule: Schedule,
                 postprocessors=DEFAULT_POSTPROCESSORS) -> KernelParams:
     """The uncached concretization body (see :func:`concretize`)."""
     op, dims = workload.op, workload.dims
-    ib = dtype_bytes(workload.dtype)
-    ob = dtype_bytes(workload.out_dtype)
     lane = hw.lane_align(workload.dtype)
     sub = hw.sublane_align(workload.dtype)
     try:
@@ -1027,7 +1052,7 @@ def _concretize(workload: Workload, hw: HardwareConfig, schedule: Schedule,
             bc = _scaled(base[1], 1.0, lane, c)
         pr, pc = round_up(r, br), round_up(c, bc)
         grid = (pr // br, pc // bc)
-        vmem = 4 * br * bc * max(ib, ob)
+        vmem = vmacc_block_bytes(workload, hw, br, bc)
         params = KernelParams(op, dims, (pr, pc), (br, bc), grid, "rc", True,
                               workload.dtype, workload.out_dtype, vmem, True)
     elif op == "attention":

@@ -59,7 +59,7 @@ from repro_torch.core.hardware import (HardwareConfig, V5E, V5E_MXU256, V5E_VMEM
                                  V5E_VMEM64)
 from repro_torch.core.schedule import Schedule
 from repro_torch.core.space import SpaceProgram
-from repro_torch.core.workload import Workload, dtype_bytes
+from repro_torch.core.workload import Workload
 
 # Lint rules over the space definition (Diagnostic.rule values).
 RULE_EMPTY = "empty-feasible-set"
@@ -197,10 +197,9 @@ def _variant_vmem_floor(workload: Workload, hw: HardwareConfig,
     generator's hard floor — bn >= 1, bc >= lane — and stays sound). The
     footprints are the ones ``space.concretize`` computes and the dynamic
     ``postproc_vmem_fit`` checks (``space.matmul_block_bytes`` for
-    matmul, ``space.gemv_block_bytes`` for gemv)."""
+    matmul and qmatmul, ``space.gemv_block_bytes`` for gemv,
+    ``space.vmacc_block_bytes`` for vmacc)."""
     op = workload.op
-    ib = dtype_bytes(workload.dtype)
-    ob = dtype_bytes(workload.out_dtype)
     lane = hw.lane_align(workload.dtype)
     ctx = {"variant": variant}
     try:
@@ -216,7 +215,7 @@ def _variant_vmem_floor(workload: Workload, hw: HardwareConfig,
         if op == "vmacc":
             br = min(program.candidates("br", ctx))
             bc = lane  # bc candidates are lane multiples (divisor domain)
-            return 4 * br * bc * max(ib, ob)
+            return space_lib.vmacc_block_bytes(workload, hw, br, bc)
     except (KeyError, ValueError):
         return None
     return None

@@ -5,7 +5,9 @@ Each kernel package has:
   kernel.py — the wrapper that launches the CUDA kernel (``csrc/*.cu``) on
               a CUDA tensor, or runs the plain version on a CPU tensor,
   plain.py  — the plain PyTorch version: the Pallas grid's per-block loop,
-  ops.py    — the public wrapper (padding, dtype policy) and the kernel's
+  ops.py    — the public wrapper (dtype policy; padding to the block
+              where the kernel needs it: the qmatmul and vmacc kernels
+              mask their tail tiles and take no padding) and the kernel's
               block-shape gate,
   ref.py    — the plain PyTorch oracle of the op.
 

@@ -1,10 +1,14 @@
 """Wrapper of the CUDA quantized matmul kernel (``csrc/qmatmul.cu``).
 
-``qmatmul_blocked`` is the port of ``_qmm_kernel`` of the JAX package's
-``kernels/qmatmul/kernel.py``. Like it, it ignores the schedule's order
-and accumulate decisions. On a CUDA tensor it launches the kernel and counts
-the launch in :data:`launches`; on a CPU tensor it runs the plain version
-(``plain.py``), and only there.
+``qmatmul_ragged`` and ``qmatmul_blocked`` are the port of ``_qmm_kernel`` of
+the JAX package's ``kernels/qmatmul/kernel.py``: one kernel, on the
+tensor cores, that takes the operands at their real size (``ragged``, what
+``ops.build`` calls) or padded to the block (``blocked``, the Pallas
+kernel's contract). Like the Pallas kernel it ignores the schedule's order
+and accumulate decisions. On a CUDA tensor either launches the kernel and
+counts the launch in :data:`launches`; on a CPU tensor it runs the plain
+version (``plain.py``), and only there. A block the kernel cannot launch
+raises ``KernelLaunchError``, with no fallback to another path.
 """
 
 from __future__ import annotations
@@ -28,7 +32,62 @@ def _lib() -> ctypes.CDLL:
         lib.qmatmul_launch.argtypes = [p, p, p, ctypes.c_float, p, i, i, i,
                                        i, i, i, p]
         lib.qmatmul_launch.restype = ctypes.c_int
+        lib.qmatmul_launch_capped.argtypes = [p, p, p, ctypes.c_float, p, i,
+                                              i, i, i, i, i, i, p]
+        lib.qmatmul_launch_capped.restype = ctypes.c_int
     return lib
+
+
+def _check_bias(x: torch.Tensor, bias: torch.Tensor, n: int) -> None:
+    if bias.shape != (n,) or bias.dtype != torch.int32 \
+            or bias.device != x.device or not bias.is_contiguous():
+        raise ValueError(f"bias must be a contiguous ({n},) int32 tensor "
+                         f"on {x.device}")
+
+
+def _launch(x, w, bias, scale, block, max_cluster):
+    """Launch the kernel on ``x (m, k) @ w (k, n)`` as they are."""
+    if x.device.type != "cuda":
+        raise ValueError(f"no qmatmul kernel for device {x.device}")
+    m, k = x.shape
+    n = w.shape[1]
+    out = torch.empty((m, n), dtype=torch.int8, device=x.device)
+    lib = _lib()
+    args = (x.data_ptr(), w.data_ptr(), bias.data_ptr(), scale,
+            out.data_ptr(), m, n, k, *block)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if max_cluster is None:
+        code = lib.qmatmul_launch(*args, stream)
+    else:
+        code = lib.qmatmul_launch_capped(*args, max_cluster, stream)
+    _build.check(lib, "_qmm_kernel", code)
+    launches["_qmm_kernel"] += 1
+    return out
+
+
+def qmatmul_ragged(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                   scale: float, block: tuple[int, int, int],
+                   max_cluster: int | None = None) -> torch.Tensor:
+    """int8 ``requant(x (m, k) @ w (k, n) + bias (n,))`` at any ``m``, ``n``,
+    ``k``; returns (m, n) int8. ``block`` sets each block's output tile and
+    k step; the kernel masks the tail tiles. ``max_cluster`` caps the blocks
+    that split K (``ops.plan``); None keeps the kernel's own rule, 1 splits
+    K over none."""
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0] \
+            or 0 in (*x.shape, w.shape[1]):
+        raise ValueError(f"bad operand shapes {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)}")
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        raise ValueError(f"qmatmul takes int8 operands, got {x.dtype}, "
+                         f"{w.dtype}")
+    if x.device != w.device:
+        raise ValueError(f"operands on {x.device} and {w.device}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("operands must be contiguous")
+    _check_bias(x, bias, w.shape[1])
+    if x.device.type == "cpu":
+        return plain.qmatmul_plain(x, w, bias, scale, block[2])
+    return _launch(x, w, bias, scale, block, max_cluster)
 
 
 def qmatmul_blocked(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -37,23 +96,7 @@ def qmatmul_blocked(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     check_operands(x, w, block)
     if x.dtype != torch.int8:
         raise ValueError(f"qmatmul takes int8 operands, got {x.dtype}")
-    pn = w.shape[1]
-    if bias.shape != (pn,) or bias.dtype != torch.int32 \
-            or bias.device != x.device or not bias.is_contiguous():
-        raise ValueError(f"bias must be a contiguous ({pn},) int32 tensor "
-                         f"on {x.device}")
-    bm, bn, bk = block
+    _check_bias(x, bias, w.shape[1])
     if x.device.type == "cpu":
-        return plain.qmatmul_plain(x, w, bias, scale, bk)
-    if x.device.type != "cuda":
-        raise ValueError(f"no qmatmul kernel for device {x.device}")
-    pm, pk = x.shape
-    out = torch.empty((pm, pn), dtype=torch.int8, device=x.device)
-    lib = _lib()
-    code = lib.qmatmul_launch(
-        x.data_ptr(), w.data_ptr(), bias.data_ptr(), scale, out.data_ptr(),
-        pm, pn, pk, bm, bn, bk,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, "_qmm_kernel", code)
-    launches["_qmm_kernel"] += 1
-    return out
+        return plain.qmatmul_plain(x, w, bias, scale, block[2])
+    return _launch(x, w, bias, scale, block, None)

@@ -32,6 +32,7 @@ from repro_torch.core import static_analysis  # noqa: E402
 from repro_torch.core import workload as W  # noqa: E402
 from repro_torch.core.sampler import TraceSampler  # noqa: E402
 from repro_torch.kernels.matmul import ops as matmul_ops  # noqa: E402
+from repro_torch.kernels.qmatmul import ops as qmatmul_ops  # noqa: E402
 
 WORKLOADS = [
     ("matmul", (64, 96, 160), "float32"),
@@ -199,12 +200,12 @@ def test_h100_space_only_offers_launchable_blocks(dims):
     prog = space.space_for(wl, hw.H100)
     for t in prog.traces():
         p = space.concretize(wl, hw.H100, schedule_lib.Schedule.fixed(**t))
-        ok = matmul_ops.supports_block_shape(*p.block, "int8",
-                                             hw.H100.vmem_capacity)
+        ok = qmatmul_ops.supports_block_shape(*p.block,
+                                              hw.H100.vmem_capacity)
         assert p.valid == (ok and p.block[0] % 16 == 0
                            and p.block[1] % 32 == 0 and p.block[2] % 32 == 0)
         if p.valid:
-            assert p.vmem_bytes == matmul_ops.smem_bytes(*p.block, "int8")
+            assert p.vmem_bytes == qmatmul_ops.smem_bytes(*p.block)
 
 
 def test_kernel_gate_rejects_what_the_kernel_cannot_launch():

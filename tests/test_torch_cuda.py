@@ -13,7 +13,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.core import (H100, CudaRunner, Schedule, TuningDatabase,  # noqa: E402
-                              TuningSession, concretize, kernel_params, tune)
+                              TuningSession, concretize, kernel_params,
+                              space_for, tune)
 from repro_torch.core import workload as W  # noqa: E402
 from repro_torch.core.tuner import effective_pipeline_depth  # noqa: E402
 from repro_torch.core.space import KernelParams  # noqa: E402
@@ -28,10 +29,14 @@ from repro_torch.kernels.gemv.kernel import gemv_blocked  # noqa: E402
 from repro_torch.kernels.matmul import ops as matmul_ops  # noqa: E402
 from repro_torch.kernels.matmul import plain as matmul_plain  # noqa: E402
 from repro_torch.kernels.matmul.kernel import matmul_blocked  # noqa: E402
+from repro_torch.kernels.qmatmul import ops as qmatmul_ops  # noqa: E402
 from repro_torch.kernels.qmatmul import plain as qmatmul_plain  # noqa: E402
-from repro_torch.kernels.qmatmul.kernel import qmatmul_blocked  # noqa: E402
+from repro_torch.kernels.qmatmul.kernel import (  # noqa: E402
+    qmatmul_blocked, qmatmul_ragged)
+from repro_torch.kernels.vmacc import ops as vmacc_ops  # noqa: E402
 from repro_torch.kernels.vmacc import plain as vmacc_plain  # noqa: E402
-from repro_torch.kernels.vmacc.kernel import vmacc_blocked  # noqa: E402
+from repro_torch.kernels.vmacc.kernel import (  # noqa: E402
+    vmacc_blocked, vmacc_ragged)
 
 pytestmark = pytest.mark.gpu
 
@@ -153,7 +158,9 @@ def test_python_gate_matches_kernel_limits(cuda, limit, dtype, inside):
     """The Python gate and the kernels' own checks (csrc/tile.cuh for f32
     and int8, csrc/matmul.cu's tensor-core launcher for bf16) agree on both
     sides of every limit: a block the gate accepts launches and is right,
-    and one step beyond it the card refuses the launch."""
+    and one step beyond it the card refuses the launch. (qmatmul has its
+    own gate since its kernel moved to the tensor cores:
+    test_qmatmul_gate_matches_kernel_limits.)"""
     block = _gate_boundary(limit, dtype)[0 if inside else 1]
     assert matmul_ops.supports_block_shape(
         *block, _GATE_DTYPE[dtype], H100.vmem_capacity) is inside
@@ -161,11 +168,6 @@ def test_python_gate_matches_kernel_limits(cuda, limit, dtype, inside):
     pairs = [(lambda acc=acc: matmul_blocked(x, w, block, accumulate=acc),
               lambda: matmul_plain.matmul_plain(x, w, block[2]))
              for acc in (True, False)]
-    if dtype == torch.int8:
-        bias = torch.zeros(block[1], dtype=torch.int32, device=cuda)
-        pairs.append((lambda: qmatmul_blocked(x, w, bias, 0.01, block),
-                      lambda: qmatmul_plain.qmatmul_plain(x, w, bias, 0.01,
-                                                          block[2])))
     for call, want in pairs:
         if not inside:
             with pytest.raises(KernelLaunchError) as err:
@@ -591,3 +593,206 @@ def test_attention_library_call_matches_oracle(cuda, dims, causal):
     torch.testing.assert_close(kernels.baseline(wl)(*inputs),
                                kernels.reference(wl)(*inputs), rtol=1e-4,
                                atol=1e-4)
+
+
+# ------------------------------------------- qmatmul and vmacc, unpadded ----
+
+def _at_offset(t, offset):
+    """A contiguous copy of ``t`` whose storage starts ``offset`` elements
+    into a larger buffer: its data_ptr() is off the 16-byte grain."""
+    buf = torch.zeros(t.numel() + offset + 16, dtype=t.dtype,
+                      device=t.device)
+    view = buf[offset:offset + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _qmm_operands(m, n, k, device, seed=1):
+    x, w = _operands(m, n, k, torch.int8, device, seed=seed)
+    bias = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        -1000, 1000, n).astype(np.int32)).to(device)
+    return x, w, bias
+
+
+# MobileNetV2 int8 (N2), MobileLLM-125M int8 prefill (N4), W1 and W2
+QMM_SHAPES = [(12544, 32, 27), (784, 144, 24), (3136, 24, 96),
+              (49, 160, 576), (1, 1000, 1280), (64, 576, 1536),
+              (3136, 64, 576), (64, 32000, 576)]
+
+
+@pytest.mark.parametrize("dims", QMM_SHAPES, ids=str)
+@pytest.mark.parametrize("max_cluster", [None, 1], ids=["rule", "no_split"])
+def test_qmatmul_ragged_matches_plain(cuda, dims, max_cluster):
+    """The unpadded entry at every block the H100 space offers the shape,
+    with K split by the kernel's rule and over no cluster: bit-exact
+    against the plain version on the same unpadded operands."""
+    wl = W.qmatmul(*dims)
+    x, w, bias = _qmm_operands(*dims, cuda)
+    blocks = sorted({concretize(wl, H100, Schedule.fixed(**t)).block
+                     for t in space_for(wl, H100).traces()})
+    for block in blocks:
+        got = qmatmul_ragged(x, w, bias, 0.01, block, max_cluster)
+        torch.cuda.synchronize()
+        assert got.shape == dims[:2]
+        assert torch.equal(got, qmatmul_plain.qmatmul_plain(
+            x, w, bias, 0.01, block[2])), block
+
+
+@pytest.mark.parametrize("offsets", [(1, 0), (0, 1), (8, 4), (4, 8), (2, 2)])
+@pytest.mark.parametrize("dims", [(64, 576, 1536), (49, 160, 576),
+                                  (33, 65, 17)], ids=str)
+def test_qmatmul_ragged_alignment_paths(cuda, offsets, dims):
+    """Operands whose storage starts off the 16-byte grain take narrower
+    copies (8, 4 bytes, or byte loads: ops.copy_width) and stay exact."""
+    x, w, bias = _qmm_operands(*dims, cuda)
+    x, w = _at_offset(x, offsets[0]), _at_offset(w, offsets[1])
+    m, n, k = dims
+    p = qmatmul_ops.plan(m, n, k, 32, 64, 64, x.data_ptr(), w.data_ptr())
+    assert p.vx == qmatmul_ops.copy_width(k, x.data_ptr()) <= 16
+    got = qmatmul_ragged(x, w, bias, 0.01, (32, 64, 64))
+    torch.cuda.synchronize()
+    assert torch.equal(got, qmatmul_plain.qmatmul_plain(x, w, bias, 0.01,
+                                                        64))
+
+
+@pytest.mark.parametrize("max_cluster", [1, 2, 4, 8])
+def test_qmatmul_cluster_cap_keeps_the_sums(cuda, max_cluster):
+    """qmatmul_launch_capped: K split over at most ``max_cluster`` blocks
+    (one output tile, 64 k steps, so the rule splits up to the cap) is
+    exact; a cap outside 1-8 is refused."""
+    x, w, bias = _qmm_operands(40, 60, 2048, cuda)
+    block = (64, 64, 32)
+    assert qmatmul_ops.plan(40, 60, 2048, *block,
+                            max_cluster=max_cluster).cluster == max_cluster
+    got = qmatmul_ragged(x, w, bias, 0.01, block, max_cluster)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qmatmul_plain.qmatmul_plain(x, w, bias, 0.01,
+                                                        32))
+    for bad in (0, qmatmul_ops.MAX_CLUSTER + 1):
+        with pytest.raises(KernelLaunchError) as err:
+            qmatmul_ragged(x, w, bias, 0.01, block, bad)
+        assert err.value.refused
+
+
+def _qmm_gate_boundary(limit):
+    """Blocks just inside and one step beyond one limit of
+    ``qmatmul.ops.supports_block_shape`` at the H100's shared memory."""
+    if limit == "grain_m":
+        return (16, 32, 32), (24, 32, 32)
+    if limit == "grain_n":
+        return (16, 32, 32), (16, 48, 32)
+    if limit == "grain_k":
+        return (16, 32, 32), (16, 32, 48)
+    if limit == "outputs":                       # bm * bn <= 16384
+        return (128, 128, 32), (128, 160, 32)
+    bk = 32                                      # shared memory
+    while qmatmul_ops.supports_block_shape(16, 32, bk + 32,
+                                           H100.vmem_capacity):
+        bk += 32
+    return (16, 32, bk), (16, 32, bk + 32)
+
+
+@pytest.mark.parametrize("limit", ["grain_m", "grain_n", "grain_k",
+                                   "outputs", "smem"])
+@pytest.mark.parametrize("inside", [True, False], ids=["inside", "beyond"])
+def test_qmatmul_gate_matches_kernel_limits(cuda, limit, inside):
+    """The Python gate and the launcher's own checks agree on both sides of
+    every limit: a block the gate accepts launches and is exact (one block
+    of operands, both entries), one step beyond it the card refuses."""
+    block = _qmm_gate_boundary(limit)[0 if inside else 1]
+    assert qmatmul_ops.supports_block_shape(
+        *block, H100.vmem_capacity) is inside
+    bm, bn, bk = block
+    x, w, bias = _qmm_operands(bm, bn, bk, cuda)
+    for call in (qmatmul_blocked, qmatmul_ragged):
+        if not inside:
+            with pytest.raises(KernelLaunchError) as err:
+                call(x, w, bias, 0.01, block)
+            assert err.value.refused
+            continue
+        got = call(x, w, bias, 0.01, block)
+        torch.cuda.synchronize()
+        assert torch.equal(got, qmatmul_plain.qmatmul_plain(x, w, bias,
+                                                            0.01, bk))
+    torch.cuda.synchronize()  # the context survived every refusal
+
+
+def test_qmatmul_kernels_run_on_tensor_cores(cuda):
+    """Every kernel of csrc/qmatmul.cu (each warp layout) issues IMMA, the
+    integer tensor-core instruction, in the built SASS."""
+    functions = {qmatmul_ops.kernel_label(name): body
+                 for name, body in _build.sass("qmatmul").items()
+                 if qmatmul_ops.kernel_label(name)}
+    assert sorted(functions) == ["qmm_kernel<1,1>", "qmm_kernel<1,2>",
+                                 "qmm_kernel<2,1>", "qmm_kernel<2,2>"]
+    for label, body in functions.items():
+        assert qmatmul_ops.IMMA.search(body), label
+
+
+@pytest.mark.parametrize("shape,block", [
+    ((196, 192), (16, 128)), ((196, 192), (32, 16)),   # N2, 14 x 14
+    ((49, 960), (16, 128)), ((49, 960), (32, 64)),      # N2, 7 x 7
+    ((12544, 32), (16, 32)),                            # N2's first stage
+    ((33, 17), (16, 16)), ((33, 17), (1, 1)),           # the scalar path
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset1"])
+def test_vmacc_ragged_matches_plain(cuda, shape, block, dtype, offset):
+    """The unpadded entry against the plain version: f32 within 1e-5 (one
+    fma against a rounded product), bf16 exact; a view at an odd offset
+    takes the scalar path (ops.plan)."""
+    a, b, c = (_at_offset(t, offset)
+               for t in _elementwise_operands(*shape, dtype, cuda))
+    aligned = all(t.data_ptr() % 16 == 0 for t in (a, b, c))
+    assert aligned == (offset == 0)
+    vec = 16 // a.element_size()
+    p = vmacc_ops.plan(*shape, *block, _GATE_DTYPE[dtype], aligned)
+    assert (p.v > 1) == (aligned and shape[1] % vec == 0
+                         and block[1] % vec == 0)
+    got = vmacc_ragged(a, b, c, block)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == shape
+    tol = 1e-5 if dtype == torch.float32 else 0.0
+    torch.testing.assert_close(got, vmacc_plain.vmacc_plain(a, b, c),
+                               rtol=tol, atol=tol)
+
+
+def test_vmacc_vector_kernels_issue_128_bit_loads(cuda):
+    """The vector kernels of csrc/vmacc.cu (f32 and bf16) read with 128-bit
+    global loads in the built SASS; the scalar ones exist beside them."""
+    functions = {vmacc_ops.kernel_label(name): body
+                 for name, body in _build.sass("vmacc").items()
+                 if vmacc_ops.kernel_label(name)}
+    assert sorted(functions) == ["vmacc_kernel<bfloat16,1>",
+                                 "vmacc_kernel<bfloat16,8>",
+                                 "vmacc_kernel<float32,1>",
+                                 "vmacc_kernel<float32,4>"]
+    for label in ("vmacc_kernel<bfloat16,8>", "vmacc_kernel<float32,4>"):
+        assert gemv_ops.LDG_128.search(functions[label]), label
+
+
+@pytest.mark.parametrize("wl", [W.qmatmul(12544, 32, 27), W.vmacc(196, 192),
+                                W.qmatmul(1, 1000, 1280), W.vmacc(33, 17)],
+                         ids=lambda w: w.key())
+def test_build_launches_one_kernel_and_pads_nothing(cuda, wl):
+    """One call of the built op on device inputs launches the kernel once
+    and nothing else (torch.profiler counts the card's kernels) and equals
+    the plain version of the same schedule."""
+    params = concretize(wl, H100, Schedule.fixed(
+        **next(iter(space_for(wl, H100).traces()))))
+    inputs = tuple(torch.from_numpy(a).to(cuda) for a in wl.example_inputs())
+    fn = kernels.build(wl, params, cache=False)
+    fn(*inputs)                                # build and load first
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = fn(*inputs)
+        torch.cuda.synchronize()
+    assert sum(kernels.launch_counts().values()) == 1
+    device_kernels = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(device_kernels) == 1, [e.name for e in device_kernels]
+    want = kernels.build(wl, params, device="cpu")(*wl.example_inputs())
+    tol = 0.0 if wl.op == "qmatmul" else 1e-5
+    torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
