@@ -30,7 +30,14 @@ widths, unreduced:
 - the bf16 tensor-core matmul: MobileLLM-125M bf16 prefill at sequence 64
   (``repro_torch.nets.mobilellm_125m("bfloat16")``: 211 bf16 matmul calls
   at 5 unique shapes, the 64 x 32000 x 576 LM head among them, beside the
-  f32 attention) through ``TuningSession`` at pipeline depth 2.
+  f32 attention) through ``TuningSession`` at pipeline depth 2;
+
+- the f32 (3xTF32) tensor-core matmul: MobileNetV2 f32 at 224 x 224
+  (``repro_torch.nets.mobilenetv2("float32")``: 36 f32 im2col matmul calls
+  at 16 unique shapes, 153 vmacc calls at 7 and the 1000 x 1280 f32 gemv
+  classifier) and the DCGAN
+  generator (``repro_torch.nets.dcgan()``: 5 f32 matmuls) through
+  ``TuningSession`` at pipeline depth 2.
 
 The int8 qmatmul and the vmacc kernels take their operands at the real
 size (``qmatmul_ragged``, ``vmacc_ragged``: the wrappers pad nothing);
@@ -39,18 +46,23 @@ Pallas kernels' contract and are held too.
 
 Phases (any failure exits nonzero and prints no result line):
   1. the card, its power limit, and the kernels' build (ptxas report: the
-     registers and spills of the bf16 tensor-core kernels, the gemv, the
-     qmatmul and the vmacc kernels); ``cuobjdump -sass`` of the matmul
-     library must show HMMA, the tensor cores' instruction, in every bf16
-     kernel, that of the qmatmul library IMMA (the integer one) in every
-     kernel, and those of the gemv and vmacc libraries a 128-bit global
-     load in every kernel with 16-byte vectors;
+     registers and spills of the bf16 and f32 tensor-core kernels, the
+     gemv, the qmatmul and the vmacc kernels); ``cuobjdump -sass`` of the
+     matmul library must show HMMA, the tensor cores' instruction, in every
+     bf16 kernel and HMMA.*.F32.TF32 in every f32 kernel, that of the
+     qmatmul library IMMA (the integer one) in every kernel, and those of
+     the gemv and vmacc libraries a 128-bit global load in every kernel with
+     16-byte vectors;
   2. each kernel against its plain PyTorch version on the same device
      tensors: qmatmul exact, f32 and bf16 matmul rtol 1e-4 / atol 1e-3
      (another sum order; bf16 products are exact in f32), bf16 op outputs
      5e-2, vmacc 1e-5, attention 2e-3 (f32 and bf16, and on peaked
      scores, q scaled by Q_SHARP); TF32 is off for the plain versions'
-     products. The bf16 matmul kernels at W3, at every block the bf16 LM
+     products. The f32 (3xTF32) matmul kernels, acc in both orders and at
+     cluster caps 1, 2, 4 and the rule's, and noacc, at every block the H100
+     spaces of W3 in f32, an odd 100x200x300, MobileNetV2 f32's 12544x32x27,
+     3136x24x96 and 49x1280x320 and DCGAN's 16x512x100 and 4096x3x256
+     offer (F32_SHAPES); the bf16 matmul kernels at W3, at every block the bf16 LM
      head's space offers (so at its tuned block), and at blocks off the
      power-of-two ladder (bn 48, bk 16, bm 128, 80 x 112); both gemv
      entries, f32 and bf16, at rtol 1e-4 / atol 1e-3 at every bn the
@@ -74,12 +86,14 @@ Phases (any failure exits nonzero and prints no result line):
      their own launch counts;
   4c. the same for MobileLLM-125M bf16 prefill, with its own launch counts;
      ``_acc_kernel`` must launch there;
+  4d. the same for MobileNetV2 f32 and DCGAN f32, with their own launch
+     counts; the f32 ``_acc_kernel`` must launch there;
   5. the timer's floor (a one-element fill_, a 16x16 gemv); _gemv_kernel at
      the down projection and _qmm_kernel at 64 x 576 x 1536 with and
      without their clusters; a torch.profiler count of the card's kernels in
      one ``kernels.build(wl, params)`` call at MobileNetV2's 196 x 192 vmacc
      and 12544 x 32 x 27 qmatmul, which must be 1; per kernel:
-     launches on the main paths (phases 3, 4, 4b and 4c), time,
+     launches on the main paths (phases 3, 4, 4b, 4c and 4d), time,
      plain version's time, library call's time and the card's bound, as one
      JSON line (``_acc_kernel`` and ``_noacc_kernel`` at W3, the gemv
      kernels at the LM head, ``_fa_kernel`` at MobileLLM's prefill;
@@ -87,10 +101,12 @@ Phases (any failure exits nonzero and prints no result line):
      step's down and up projections, ``_fa_kernel`` at sequence 2048, the
      best rung of its ladder, ``_qmm_kernel`` at MobileLLM prefill's 64 x
      576 x 1536 and MobileNetV2's classifier 1 x 1000 x 1280,
-     ``_vmacc_kernel`` at 196 x 192 and the f32 ``_acc_kernel`` and
-     ``_noacc_kernel`` at W3 are on the line of all rows). A row's bound
-     counts the bytes and operations of the operands the path hands the
-     kernel: the real, unpadded ones for qmatmul and vmacc.
+     ``_vmacc_kernel`` at 196 x 192 are on the line of all rows; the f32
+     ``_acc_kernel`` and ``_noacc_kernel`` at W3, the f32 ``_acc_kernel`` at
+     MobileNetV2 f32's costliest matmul and DCGAN's 1024 x 64 x 512 on
+     both, with the 3xTF32 figure beside the bound). A row's bound counts
+     the bytes and operations of the operands the path hands the kernel:
+     the real, unpadded ones for qmatmul and vmacc.
 The last line is {"ok": true, "device": {...}}.
 
 Run:  python3 chip_smoke.py      (needs one CUDA card and nvcc)
@@ -113,7 +129,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 TRIALS, SEED = 32, 0
 # Network phase budgets: trials per unique workload of each network.
-DECODE_TRIALS, MNV2_TRIALS, PREFILL_TRIALS = 32, 16, 16
+DECODE_TRIALS, MNV2_TRIALS, PREFILL_TRIALS, DCGAN_TRIALS = 32, 16, 16, 32
+# Dense TF32 peak of the H100 SXM (NVIDIA data sheet): 3xTF32 issues three
+# TF32 products per f32 product.
+PEAK_TF32 = 494.7e12
 # q times this turns example_inputs' near-uniform attention (operands of
 # standard deviation 0.5, scores of 0.25) into a peaked one (scores of 4).
 Q_SHARP = 16.0
@@ -122,6 +141,13 @@ SLICE2 = ("_qmm_kernel", "_gemv_kernel", "_gemv_noacc_kernel",
           "_vmacc_kernel")
 SLICE3 = ("_qmm_kernel", "_fa_kernel")
 SLICE4 = ("_acc_kernel",)
+SLICE7 = ("_acc_kernel",)
+# The f32 matmul kernels' shapes in phase 2: W3 in f32, an odd shape,
+# MobileNetV2 f32's (N6) 12544x32x27, 3136x24x96 and 49x1280x320 and
+# DCGAN's (N7) 16x512x100 and 4096x3x256.
+F32_SHAPES = ((64, 1536, 576), (100, 200, 300), (12544, 32, 27),
+              (3136, 24, 96), (49, 1280, 320), (16, 512, 100),
+              (4096, 3, 256))
 # The unpadded _qmm_kernel's shapes in phase 2: MobileNetV2 int8 (N2),
 # MobileLLM-125M int8 prefill (N4), W1 and W2.
 QMM_SHAPES = ((12544, 32, 27), (784, 144, 24), (3136, 24, 96),
@@ -158,18 +184,6 @@ def bound_ms(tensors_in, tensor_out, ops: float, dtype: str):
         + tensor_out.numel() * tensor_out.element_size()
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
-def tensor_core_kernel(mangled: str) -> str | None:
-    """``matmul_tc_kernel<WMF,WNF,REP,acc|noacc>`` for the mangled name of
-    one of the bf16 tensor-core kernels (``csrc/matmul.cu``), else None."""
-    m = re.search(r"matmul_tc_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E",
-                  mangled)
-    if m is None:
-        return None
-    wmf, wnf, rep, acc = m.groups()
-    return (f"matmul_tc_kernel<{wmf},{wnf},{rep},"
-            f"{'acc' if acc == '1' else 'noacc'}>")
 
 
 def ptxas_resources(log: str, label) -> dict:
@@ -229,6 +243,7 @@ def main() -> int:
     from repro_torch.kernels.gemv import ops as gemv_ops
     from repro_torch.kernels.gemv import plain as gemv_plain
     from repro_torch.kernels.gemv.kernel import gemv_blocked
+    from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.kernels.matmul import plain as mm_plain
     from repro_torch.kernels.matmul.kernel import matmul_blocked
     from repro_torch.kernels.matmul.ops import pad2
@@ -261,10 +276,10 @@ def main() -> int:
             print("  " + line.strip())
     print("(shared memory is dynamic: smem_bytes(bm, bn, bk) per launch)")
     print("bf16 tensor-core kernels (matmul.cu), ptxas and SASS:")
-    resources = ptxas_resources(_build.build_log(), tensor_core_kernel)
-    sass = {tensor_core_kernel(name): body
+    resources = ptxas_resources(_build.build_log(), mm_ops.bf16_kernel_label)
+    sass = {mm_ops.bf16_kernel_label(name): body
             for name, body in _build.sass("matmul").items()
-            if tensor_core_kernel(name)}
+            if mm_ops.bf16_kernel_label(name)}
     if not sass or set(sass) != set(resources):
         raise RuntimeError(f"bf16 kernels in the SASS {sorted(sass)} and the "
                            f"ptxas report {sorted(resources)} differ")
@@ -276,6 +291,24 @@ def main() -> int:
               f"instructions")
         if n_hmma == 0:
             raise RuntimeError(f"{label} has no HMMA: not on the tensor cores")
+    print("f32 3xTF32 tensor-core kernels (matmul.cu), ptxas and SASS:")
+    resources = ptxas_resources(_build.build_log(), mm_ops.kernel_label)
+    sass = {mm_ops.kernel_label(name): body
+            for name, body in _build.sass("matmul").items()
+            if mm_ops.kernel_label(name)}
+    if len(sass) != 10 or set(sass) != set(resources):
+        raise RuntimeError(f"f32 kernels in the SASS {sorted(sass)} and the "
+                           f"ptxas report {sorted(resources)} differ")
+    for label, body in sorted(sass.items()):
+        n_tf32 = len(mm_ops.HMMA_TF32.findall(body))
+        spelled = sorted(set(mm_ops.HMMA_TF32.findall(body)))
+        res = resources[label]
+        print(f"  {label}: {res['registers']} registers, spill stores/loads "
+              f"{res['spills'][0]}/{res['spills'][1]} bytes, {n_tf32} "
+              f"{'/'.join(spelled) or 'HMMA.*.F32.TF32'} instructions")
+        if n_tf32 == 0:
+            raise RuntimeError(f"{label} has no TF32 HMMA: not on the tensor "
+                               f"cores")
     print("gemv kernels (gemv.cu), ptxas and SASS:")
     resources = ptxas_resources(_build.build_log(), gemv_ops.kernel_label)
     sass = {gemv_ops.kernel_label(name): body
@@ -437,6 +470,49 @@ def main() -> int:
         p = concretize(odd, H100, s)
         check_matmul(odd, p, f"odd {odd.dims} padded {p.padded_dims}",
                      "_acc_kernel" if acc else "_noacc_kernel")
+
+    def check_f32(dims, label):
+        """Both f32 (3xTF32) entries at every block the shape's H100 space
+        offers, on the workload's inputs padded to it: _acc_kernel in both
+        orders and at cluster caps 1, 2, 4 and the rule's (8), and
+        _noacc_kernel, against the plain version at rtol 1e-4 / atol 1e-3.
+        One line per shape."""
+        wl = W.matmul(*dims, "float32")
+        x, w = device_inputs(wl)
+        blocks = sorted({concretize(wl, H100, Schedule.fixed(**t)).block
+                         for t in space_for(wl, H100).traces()})
+        top = mm_ops.F32_MAX_CLUSTER
+        clusters = set()
+        diffs = {"_acc_kernel": 0.0, "_noacc_kernel": 0.0}
+        for block in blocks:
+            pm, pn, pk = (math.ceil(d / b) * b for d, b in zip(dims, block))
+            xp, wp = pad2(x, pm, pk).contiguous(), pad2(w, pk, pn).contiguous()
+            want = mm_plain.matmul_plain(xp, wp, block[2]).double()
+            for order, acc, cap in (("mnk", True, top), ("nmk", True, top),
+                                    ("mnk", True, 1), ("mnk", True, 2),
+                                    ("mnk", True, 4), ("mnk", False, top)):
+                name = "_acc_kernel" if acc else "_noacc_kernel"
+                got = matmul_blocked(xp, wp, block, order, acc, cap)
+                torch.cuda.synchronize()
+                diff = (got.double() - want).abs()
+                if not bool(torch.all(diff <= 1e-3 + 1e-4 * want.abs())):
+                    raise RuntimeError(f"{name} f32 {label} {dims} {block} "
+                                       f"{order} cap {cap} disagrees with "
+                                       f"its plain version")
+                diffs[name] = max(diffs[name], float(diff.max()))
+                if acc:
+                    clusters.add(mm_ops.plan(pm, pn, pk, *block, True,
+                                             cap).cluster)
+        for name, d in diffs.items():
+            err[name] = max(err[name], d)
+        print(f"  f32 {label} {dims}: {len(blocks)} blocks x (acc mnk/nmk, "
+              f"caps 1/2/4/{top}; noacc), clusters {sorted(clusters)}: max "
+              f"|diff| acc {diffs['_acc_kernel']:.3g}, noacc "
+              f"{diffs['_noacc_kernel']:.3g} (rtol 1e-4, atol 1e-3) ok")
+
+    for dims, label in zip(F32_SHAPES, ("W3", "odd", "N6", "N6", "N6", "N7",
+                                        "N7")):
+        check_f32(dims, label)
 
     def check_tensor_core(wl, block, label):
         """Both bf16 tensor-core entries against the plain version on the
@@ -751,6 +827,8 @@ def main() -> int:
                     rtol, atol = 1e-5, 1e-5
                 elif wl.op == "attention":
                     rtol, atol = 2e-3, 2e-3
+                elif wl.dtype == "float32":   # f32 matmul and gemv
+                    rtol, atol = 1e-4, 1e-3
                 else:
                     rtol, atol = 5e-2, 5e-2
                 entry = "" if params.accumulate else " noacc"
@@ -834,8 +912,29 @@ def main() -> int:
         if launches4c[name] == 0:
             raise RuntimeError(f"{name} was not launched on the bf16 prefill "
                                f"path")
+
+    phase(f"4d. main path, f32 tensor cores (3xTF32): MobileNetV2 f32 at "
+          f"224x224 ({MNV2_TRIALS} trials per workload) and DCGAN f32 "
+          f"({DCGAN_TRIALS} trials per workload), TuningSession, depth 2, "
+          f"seed {SEED}")
+    f32_nets = {"mobilenetv2 f32": (nets.mobilenetv2("float32"), MNV2_TRIALS,
+                                    "mobilenetv2-f32"),
+                "dcgan f32": (nets.dcgan(), DCGAN_TRIALS, "dcgan-f32")}
+    kernels.reset_launch_counts()
+    sessions4d = {
+        net: TuningSession(H100, runner, database=net_db,
+                           pipeline_depth=2).tune_model(
+            ops, total_trials=trials * len({wl.key() for _, wl in ops}),
+            seed=SEED, model=model)
+        for net, (ops, trials, model) in f32_nets.items()}
+    launches4d = kernels.launch_counts()
+    print(f"launches on the f32 path: {launches4d}")
+    report_networks(sessions4d)
+    for name in SLICE7:
+        if launches4d[name] == 0:
+            raise RuntimeError(f"{name} was not launched on the f32 path")
     launches = {name: launches3[name] + launches4[name] + launches4b[name]
-                + launches4c[name] for name in REPLACES}
+                + launches4c[name] + launches4d[name] for name in REPLACES}
 
     # ---------------------------------------------------------------- 5 ----
     phase("5. kernel times at the main paths' shapes")
@@ -911,6 +1010,9 @@ def main() -> int:
                 lambda *a: mm_plain.matmul_plain(a[0], a[1], params.block[2]))
             bound, by = bound_ms((xp, wp), kern(*args), 2.0 * pm * pn * pk,
                                  wl.dtype)
+        tf32 = {}
+        if wl.op == "matmul" and wl.dtype == "float32":
+            tf32["bound_3xtf32_ms"] = 3 * 2.0 * pm * pn * pk / PEAK_TF32 * 1e3
         r = {"name": name, "route": "cuda", "source": SOURCE[name],
              "replaces": REPLACES[name],
              "launches": launches[name], "max_abs_err": err[name],
@@ -918,12 +1020,14 @@ def main() -> int:
              "plain_ms": timer(plain_fn, args) * 1e3,
              "bound_ms": bound, "bound_by": by,
              "library_ms": timer(kernels.baseline(wl), x) * 1e3,
-             "workload": label, "block": list(params.block)}
+             "workload": label, "block": list(params.block), **tf32}
         rows.append(r)
+        extra = (f"; 3xTF32 at the TF32 peak {tf32['bound_3xtf32_ms']*1e3:.3f}"
+                 f" us" if tf32 else "")
         print(f"  {name} {label} block {params.block}: kernel "
               f"{r['ms']*1e3:.2f} us, plain {r['plain_ms']*1e3:.2f} us, "
               f"library {r['library_ms']*1e3:.2f} us, bound "
-              f"{r['bound_ms']*1e3:.3f} us ({by})")
+              f"{r['bound_ms']*1e3:.3f} us ({by}){extra}")
         return r
 
     acc3 = row("_acc_kernel", wl3, best_of(wl3, accumulate=True), "W3")
@@ -953,12 +1057,49 @@ def main() -> int:
         t_1 = timer(qmatmul_ragged, (*x, DEFAULT_SCALE, block, 1))
         print(f"  _qmm_kernel 64x576x1536 {block}: {c}-block clusters "
               f"{t_c*1e6:.2f} us, no cluster {t_1*1e6:.2f} us")
-    # f32 on the CUDA cores (csrc/tile.cuh), library call torch.matmul f32
-    # with TF32 off
-    row("_acc_kernel", wl3_f32, concretize(
+    # f32 on the tensor cores (3xTF32), library call torch.matmul f32 with
+    # TF32 off: W3 at the blocks the CUDA-core kernel was timed at, then
+    # the f32 networks' shapes at their tuned accumulating blocks
+    acc3_f32 = row("_acc_kernel", wl3_f32, concretize(
         wl3_f32, H100, fixed_library_schedule(wl3_f32, H100)), "W3 f32")
-    row("_noacc_kernel", wl3_f32, concretize(wl3_f32, H100, noacc),
-        "W3 f32")
+    noacc3_f32 = row("_noacc_kernel", wl3_f32,
+                     concretize(wl3_f32, H100, noacc), "W3 f32")
+
+    def f32_best(wl):
+        """The f32 sessions' fastest accumulating block, or the fixed
+        library's (accumulating) where they measured none."""
+        try:
+            return net_best_of(wl, accumulate=True)
+        except RuntimeError as exc:
+            print(f"  {exc}; timing the fixed library block")
+            return concretize(wl, H100, fixed_library_schedule(wl, H100))
+
+    costly = max((r for r in sessions4d["mobilenetv2 f32"].reports
+                  if r.workload.op == "matmul"),
+                 key=lambda r: r.count * r.best_latency).workload
+    n6_row = row("_acc_kernel", costly, f32_best(costly),
+                 f"MobileNetV2 f32 costliest matmul "
+                 f"{'x'.join(map(str, costly.dims))}")
+    n7_mm = W.matmul(1024, 64, 512, "float32")
+    n7_row = row("_acc_kernel", n7_mm, f32_best(n7_mm),
+                 "DCGAN f32 1024x64x512")
+    # the f32 _acc_kernel at DCGAN's 64 x 256 x 2048 (32 k steps of 64) and
+    # at W3 with K split over a cluster by its rule and over none: what the
+    # split buys
+    n7_long = W.matmul(64, 256, 2048, "float32")
+    for wl, blocks in ((n7_long, {f32_best(n7_long).block, (64, 64, 64)}),
+                       (wl3_f32, {(64, 64, 32), (64, 64, 64)})):
+        x = runner.inputs(wl)
+        for block in sorted(blocks):
+            pm, pn, pk = (math.ceil(d / b) * b for d, b in zip(wl.dims, block))
+            xp = pad2(x[0], pm, pk).contiguous()
+            wp = pad2(x[1], pk, pn).contiguous()
+            c = mm_ops.plan(pm, pn, pk, *block, True).cluster
+            t_c = timer(matmul_blocked, (xp, wp, block))
+            t_1 = timer(matmul_blocked, (xp, wp, block, "mnk", True, 1))
+            print(f"  _acc_kernel f32 {'x'.join(map(str, wl.dims))} {block}: "
+                  f"{c}-block clusters {t_c*1e6:.2f} us, no cluster "
+                  f"{t_1*1e6:.2f} us")
     def gemv_best(wl, accumulate):
         """The decode session's fastest block of one entry, or the 128 x 64
         block where the session measured none of that entry."""
@@ -1031,12 +1172,13 @@ def main() -> int:
           "(query, key) pairs only)")
     print("rows " + json.dumps(rows))
     print(card_line)
-    strip = ("workload", "block")
+    strip = ("workload", "block", "bound_3xtf32_ms")
     print(json.dumps({"kernels": [{k: v for k, v in r.items()
                                    if k not in strip}
                                   for r in (acc3, noacc3, qmm2, gemv_acc,
-                                            gemv_noacc, vmacc_row,
-                                            fa_row)]}))
+                                            gemv_noacc, vmacc_row, fa_row,
+                                            acc3_f32, noacc3_f32, n6_row,
+                                            n7_row)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,11 @@
 // PTX wrappers for the tensor-core kernels: cp.async copies from device to
-// shared memory (16 bytes for the bf16 matmul, matmul.cu; 16, 8 or 4 bytes
-// with zero fill for the int8 qmatmul, qmatmul.cu), ldmatrix fragment loads
-// and the warp-level mma.sync products: m16n8k16 bf16 with f32 accumulators
-// and m16n8k32 s8 with s32 accumulators. Each wrapper is one instruction;
-// the fragment layouts are those of the PTX ISA ("Matrix Fragments for
-// mma.m16n8k16" and "for mma.m16n8k32").
+// shared memory (16 bytes for the bf16 and f32 matmul, matmul.cu; 16, 8 or
+// 4 bytes with zero fill for the int8 qmatmul, qmatmul.cu), ldmatrix
+// fragment loads, the TF32 rounding and the warp-level mma.sync products:
+// m16n8k16 bf16 and m16n8k8 TF32 with f32 accumulators, m16n8k32 s8 with
+// s32 accumulators. Each wrapper is one instruction; the fragment layouts
+// are those of the PTX ISA ("Matrix Fragments for mma.m16n8k16", "for
+// mma.m16n8k8" and "for mma.m16n8k32").
 #pragma once
 
 #include <cuda_bf16.h>
@@ -87,6 +88,26 @@ __device__ inline void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
                                       uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// v rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero; the low 13 bits of the result are zero.
+__device__ inline uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// d += a (16x8, row-major) @ b (8x8, column-major), TF32 in, f32 sum. a0 is
+// row g, column t; a1 row g + 8; a2, a3 the same at column t + 4; b0 is row
+// t, column g, b1 row t + 4; d as for m16n8k16 (g = lane / 4, t = lane % 4).
+__device__ inline void mma_tf32_1688(float (&d)[4], const uint32_t (&a)[4],
+                                     uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -108,7 +108,9 @@ def test_h100_grain_and_registry():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 def test_h100_ladder_rungs_are_launchable(dtype):
     rungs = intrinsics.all_variants("matmul", hw.H100, dtype)
-    assert rungs[0].block[0] == 128  # the register accumulator caps the tile
+    # the register accumulator caps the tile at 128; f32's three ring
+    # stages of a 128^3 block need 411,648 bytes of shared memory
+    assert rungs[0].block[0] == (64 if dtype == "float32" else 128)
     for v in rungs:
         assert matmul_ops.supports_block_shape(*v.block, dtype,
                                                hw.H100.vmem_capacity)
@@ -211,16 +213,17 @@ def test_h100_space_only_offers_launchable_blocks(dims):
 def test_kernel_gate_rejects_what_the_kernel_cannot_launch():
     limit = hw.H100.vmem_capacity
     gate = matmul_ops.supports_block_shape
-    assert gate(128, 128, 128, "float32", limit)
-    assert not gate(256, 128, 16, "float32", limit)     # 2048 threads
+    assert gate(128, 128, 64, "float32", limit)
+    assert not gate(128, 128, 128, "float32", limit)    # three ring stages
+    assert not gate(256, 128, 16, "float32", limit)     # 32768 outputs
     assert not gate(16, 16, 2048, "float32", limit)     # shared memory
     assert gate(16, 16, 2048, "int8", limit)
     assert not gate(16, 32, 30, "int8", limit)          # dp4a depth
-    assert not gate(18, 16, 16, "float32", limit)       # micro-tile
+    assert not gate(18, 16, 16, "float32", limit)       # mma fragment
     assert matmul_ops.smem_bytes(64, 64, 96, "float32") == \
-        (64 * 97 + 96 * 64) * 4
+        3 * (64 * 100 + 96 * 72) * 4
     wl = W.matmul(256, 256, 4096)
-    bad = schedule_lib.Schedule.fixed(variant="mxu_128", bm=128, bn=128,
+    bad = schedule_lib.Schedule.fixed(variant="mxu_64", bm=64, bn=64,
                                       bk=4096, order="mnk", accumulate=True)
     p = space.concretize(wl, hw.H100, bad)
     assert not p.valid

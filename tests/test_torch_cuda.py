@@ -8,6 +8,8 @@ Run on a machine with an H100:  python -m pytest -q -m gpu tests/test_torch_cuda
 
 import numpy as np
 import pytest
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
 
 torch = pytest.importorskip("torch")
 
@@ -109,7 +111,7 @@ def test_qmatmul_kernel_bit_exact(cuda, shape, block):
 
 def test_refused_launch_raises_refused(cuda):
     x, w = _operands(256, 256, 32, torch.float32, cuda)
-    with pytest.raises(KernelLaunchError) as err:   # 4096 threads per block
+    with pytest.raises(KernelLaunchError) as err:   # 65536 outputs a block
         matmul_blocked(x, w, (256, 256, 32))
     assert err.value.refused
     x, w = _operands(16, 16, 4096, torch.float32, cuda)
@@ -126,19 +128,20 @@ _GATE_DTYPE = {torch.float32: "float32", torch.bfloat16: "bfloat16",
 def _gate_boundary(limit, dtype):
     """Blocks just inside and one step beyond one limit of the Python gate
     (``matmul.ops.supports_block_shape`` at the H100's shared memory)."""
-    bf16 = dtype == torch.bfloat16
-    if limit == "micro_tile":                    # f32, int8: 4x4 per thread
+    tensor_cores = dtype != torch.int8
+    if limit == "micro_tile":                    # int8: 4x4 per thread
         return (4, 4, 16), (6, 4, 16)
-    if limit.startswith("grain_"):               # bf16: 16x16x16 fragments
+    if limit.startswith("grain_"):               # f32, bf16: 16x16 fragments
         dim = "mnk".index(limit[-1])
         beyond = [16, 16, 16]
         beyond[dim] = 24
         return (16, 16, 16), tuple(beyond)
     if limit == "threads":                       # bm * bn <= 16384
-        return (128, 128, 16), ((144, 128, 16) if bf16 else (132, 128, 16))
+        return (128, 128, 16), ((144, 128, 16) if tensor_cores
+                                else (132, 128, 16))
     if limit == "dp4a":                          # int8 bk % 4
         return (4, 4, 4), (4, 4, 6)
-    grain = {torch.int8: 4, torch.bfloat16: 16}.get(dtype, 1)  # smem
+    grain = 16 if tensor_cores else 4            # smem
     bk = grain
     while matmul_ops.supports_block_shape(16, 16, bk + grain,
                                           _GATE_DTYPE[dtype],
@@ -148,15 +151,15 @@ def _gate_boundary(limit, dtype):
 
 
 @pytest.mark.parametrize("limit,dtype", [
-    (limit, dtype) for limit in ("micro_tile", "threads", "smem")
-    for dtype in (torch.float32, torch.int8)
-] + [("dp4a", torch.int8)] + [
-    (limit, torch.bfloat16)
+    (limit, torch.int8) for limit in ("micro_tile", "threads", "smem",
+                                      "dp4a")
+] + [
+    (limit, dtype) for dtype in (torch.float32, torch.bfloat16)
     for limit in ("grain_m", "grain_n", "grain_k", "threads", "smem")])
 @pytest.mark.parametrize("inside", [True, False], ids=["inside", "beyond"])
 def test_python_gate_matches_kernel_limits(cuda, limit, dtype, inside):
-    """The Python gate and the kernels' own checks (csrc/tile.cuh for f32
-    and int8, csrc/matmul.cu's tensor-core launcher for bf16) agree on both
+    """The Python gate and the kernels' own checks (csrc/tile.cuh for int8,
+    csrc/matmul.cu's tensor-core launchers for f32 and bf16) agree on both
     sides of every limit: a block the gate accepts launches and is right,
     and one step beyond it the card refuses the launch. (qmatmul has its
     own gate since its kernel moved to the tensor cores:
@@ -185,14 +188,115 @@ def test_python_gate_matches_kernel_limits(cuda, limit, dtype, inside):
 
 
 def test_bf16_matmul_kernels_run_on_tensor_cores(cuda):
-    """Every bf16 kernel of csrc/matmul.cu (both entries, each warp layout)
-    issues HMMA, the tensor cores' instruction, in the built SASS; the f32
-    and int8 kernels issue none."""
+    """Every bf16 and f32 kernel of csrc/matmul.cu (both entries, each warp
+    layout) issues HMMA, the tensor cores' instruction, in the built SASS,
+    the f32 ones as TF32 products; the int8 kernels issue none."""
     functions = _build.sass("matmul")
-    tc = [name for name in functions if "matmul_tc_kernel" in name]
-    assert len(tc) == 10, sorted(functions)   # 5 warp layouts x 2 entries
+    bf16 = [n for n in functions if matmul_ops.bf16_kernel_label(n)]
+    f32 = [n for n in functions if matmul_ops.kernel_label(n)]
+    assert len(bf16) == 10, sorted(functions)  # 5 warp layouts x 2 entries
+    assert len(f32) == 10, sorted(functions)
     for name, body in functions.items():
-        assert ("HMMA" in body) == (name in tc), name
+        assert ("HMMA" in body) == (name in bf16 + f32), name
+        assert bool(matmul_ops.HMMA_TF32.search(body)) == (name in f32), name
+
+
+# The f32 kernels' shapes in chip_smoke.py's phase 2: W3 in f32, an odd
+# shape, MobileNetV2 f32's 12544x32x27, 3136x24x96 and 49x1280x320, and
+# DCGAN's 16x512x100 and 4096x3x256.
+F32_SHAPES = [(64, 1536, 576), (100, 200, 300), (12544, 32, 27),
+              (3136, 24, 96), (49, 1280, 320), (16, 512, 100),
+              (4096, 3, 256)]
+
+
+def _f32_check(x, w, block):
+    """Both f32 entries at ``block`` on padded operands: _acc_kernel in both
+    orders and at every cluster cap that changes its split, _noacc_kernel,
+    each against the plain version at rtol 1e-4 / atol 1e-3. Returns the
+    clusters the acc entry ran with."""
+    want = matmul_plain.matmul_plain(x, w, block[2])
+    rtol, atol = TOL[torch.float32]
+    (pm, pk), pn = x.shape, w.shape[1]
+    clusters = set()
+    top = matmul_ops.F32_MAX_CLUSTER
+    for order, acc, cap in (("mnk", False, top), ("nmk", True, top),
+                            ("mnk", True, top), ("mnk", True, 1),
+                            ("mnk", True, 2), ("mnk", True, 4)):
+        if acc:
+            clusters.add(matmul_ops.plan(pm, pn, pk, *block, True,
+                                         cap).cluster)
+        got = matmul_blocked(x, w, block, order, acc, cap)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                                   msg=lambda m: f"{block} {order} acc={acc} "
+                                   f"cap {cap}: {m}")
+    return clusters
+
+
+@pytest.mark.parametrize("dims", F32_SHAPES, ids=str)
+def test_f32_matmul_kernels_match_plain_at_every_space_block(cuda, dims):
+    """Both 3xTF32 entries at every block the H100 space offers the shape
+    (padded to it as ``ops.build`` pads), K split by the rule and under
+    caps 1, 2 and 4."""
+    wl = W.matmul(*dims, "float32")
+    x0, w0 = _operands(*dims, torch.float32, cuda)
+    blocks = sorted({concretize(wl, H100, Schedule.fixed(**t)).block
+                     for t in space_for(wl, H100).traces()})
+    assert blocks
+    for block in blocks:
+        pm, pn, pk = (-(-d // b) * b for d, b in zip(dims, block))
+        x = matmul_ops.pad2(x0, pm, pk).contiguous()
+        w = matmul_ops.pad2(w0, pk, pn).contiguous()
+        _f32_check(x, w, block)
+
+
+@pytest.mark.parametrize("block", [(64, 64, 32), (80, 112, 32)],
+                         ids=["2x2_tiles", "two_16x16_tiles_a_warp"])
+@pytest.mark.parametrize("max_cluster", [1, 2, 4, 8])
+def test_f32_cluster_cap_keeps_the_sums(cuda, max_cluster, block):
+    """matmul_launch_capped: the f32 _acc_kernel with K split over at most
+    ``max_cluster`` blocks (one output tile, 64 k steps, so the rule splits
+    up to the cap; at 80 x 112 each warp reduces two 16x16 tiles, one
+    warp's second tile absent) stays within 1e-4 / 1e-3; a cap outside
+    1-8 is refused."""
+    bm, bn, bk = block
+    x, w = _operands(bm, bn, 64 * bk, torch.float32, cuda)
+    lay = matmul_ops.plan(bm, bn, 64 * bk, *block, True, max_cluster)
+    assert lay.cluster == max_cluster
+    assert lay.rep == (2 if block == (80, 112, 32) else 1)
+    got = matmul_blocked(x, w, block, "mnk", True, max_cluster)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, matmul_plain.matmul_plain(x, w, bk),
+                               rtol=1e-4, atol=1e-3)
+    for bad in (0, matmul_ops.F32_MAX_CLUSTER + 1):
+        with pytest.raises(KernelLaunchError) as err:
+            matmul_blocked(x, w, block, "mnk", True, bad)
+        assert err.value.refused
+
+
+@st.composite
+def _f32_case(draw):
+    """(m, n, k) up to 256 and a launchable 16-grain block."""
+    m, n, k = (draw(st.integers(1, 256)) for _ in range(3))
+    while True:
+        block = tuple(draw(st.sampled_from([16, 32, 48, 64, 80, 112, 128]))
+                      for _ in range(3))
+        if matmul_ops.supports_block_shape(*block, "float32",
+                                           H100.vmem_capacity):
+            return (m, n, k), block
+
+
+@settings(max_examples=60, deadline=None,
+          suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(case=_f32_case(), seed=st.integers(0, 2**16))
+def test_f32_matmul_kernels_match_plain_on_drawn_shapes(cuda, case, seed):
+    """Hypothesis over (m, n, k) <= 256 and blocks: both f32 entries, every
+    cluster cap that changes the split, within 1e-4 / 1e-3."""
+    dims, block = case
+    x0, w0 = _operands(*dims, torch.float32, cuda, seed=seed)
+    pm, pn, pk = (-(-d // b) * b for d, b in zip(dims, block))
+    _f32_check(matmul_ops.pad2(x0, pm, pk).contiguous(),
+               matmul_ops.pad2(w0, pk, pn).contiguous(), block)
 
 
 def test_launch_counts(cuda):

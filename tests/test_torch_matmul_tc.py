@@ -9,7 +9,8 @@ MobileLLM-125M bf16 prefill network against the JAX package.
   exactly its footprint; the footprint is nondecreasing in each block dim
   (the static analyzer's floor relies on it), and the analyzer's counts
   equal exhaustive enumeration.
-- The f32 and int8 gates and footprints (``csrc/tile.cuh``) are unchanged.
+- The int8 gate and footprint (``csrc/tile.cuh``) are unchanged; the f32
+  ones follow the 3xTF32 tensor-core kernel.
 - ``nets.mobilellm_125m("bfloat16")`` has the JAX package's workloads, and
   an analytic ``V5E`` session over it is bit-identical to the JAX
   package's, serial and interleaved at depth 2.
@@ -135,12 +136,14 @@ def test_bf16_ladder_tops_at_128_and_follows_shared_memory():
 
 
 @pytest.mark.parametrize("dtype,block,smem,inside", [
-    ("float32", (64, 64, 96), (64 * 97 + 96 * 64) * 4, True),
-    ("float32", (128, 128, 128), (128 * 129 + 128 * 128) * 4, True),
-    ("float32", (4, 4, 16), (4 * 17 + 16 * 4) * 4, True),
-    ("float32", (6, 4, 16), (6 * 17 + 16 * 4) * 4, False),     # micro-tile
-    ("float32", (132, 128, 16), (132 * 17 + 16 * 128) * 4, False),  # threads
-    ("float32", (16, 16, 2048), (16 * 2049 + 2048 * 16) * 4, False),  # smem
+    ("float32", (64, 64, 96), 3 * (64 * 100 + 96 * 72) * 4, True),
+    ("float32", (128, 128, 128), 3 * (128 * 132 + 128 * 136) * 4,
+     False),                                                    # the ring
+    ("float32", (16, 16, 16), 3 * (16 * 20 + 16 * 24) * 4, True),
+    ("float32", (4, 4, 16), 3 * (4 * 20 + 16 * 12) * 4, False),  # 16 grain
+    ("float32", (144, 128, 16), 144 * 128 * 4, False),          # outputs
+    ("float32", (16, 16, 2048), 3 * (16 * 2052 + 2048 * 24) * 4,
+     False),                                                    # smem
     ("int8", (64, 64, 64), 64 * 68 + 64 * 64, True),
     ("int8", (16, 32, 32), 16 * 36 + 32 * 32, True),
     ("int8", (16, 16, 2048), 16 * 2052 + 2048 * 16, True),
@@ -148,9 +151,13 @@ def test_bf16_ladder_tops_at_128_and_follows_shared_memory():
 ])
 def test_f32_and_int8_gates_and_footprints_unchanged(dtype, block, smem,
                                                      inside):
-    """The CUDA-core kernels (csrc/tile.cuh) keep their limits: the x tile
-    padded by one 32-bit word a row plus the w tile, 4x4 micro-tiles, at
-    most 1024 threads, int8 depth a multiple of 4."""
+    """The int8 kernel (csrc/tile.cuh) keeps its limits: the x tile padded
+    by one 32-bit word a row plus the w tile, 4x4 micro-tiles, at most 1024
+    threads, depth a multiple of 4. The f32 rows follow the 3xTF32
+    tensor-core kernel that replaced the CUDA-core one
+    (tests/test_torch_matmul_f32_tc.py): 16-grain blocks, at most 16384
+    outputs, three ring stages of x rows padded by 4 floats and w rows by
+    8, or the partial tile of a cluster, within the shared memory."""
     assert matmul_ops.smem_bytes(*block, dtype) == smem
     assert matmul_ops.supports_block_shape(*block, dtype, LIMIT) is inside
 
