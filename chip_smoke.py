@@ -37,6 +37,13 @@ widths, unreduced:
   at 16 unique shapes, 153 vmacc calls at 7 and the 1000 x 1280 f32 gemv
   classifier) and the DCGAN
   generator (``repro_torch.nets.dcgan()``: 5 f32 matmuls) through
+  ``TuningSession`` at pipeline depth 2;
+
+- long-context attention (N8): the attention workloads of MobileLLM-125M
+  at its max_seq_len 2048 (``attention(1, 9, 3, 2048, 2048, 64)`` f32
+  causal GQA, x30) and BERT-tiny at its 512 (``attention(1, 2, 2, 512, 512,
+  64)`` f32 MHA, x2), taken from ``repro_torch.nets.mobilellm_125m("int8",
+  seq=2048)`` and ``bert_tiny("int8", seq=512)``, through
   ``TuningSession`` at pipeline depth 2.
 
 The int8 qmatmul and the vmacc kernels take their operands at the real
@@ -47,12 +54,13 @@ Pallas kernels' contract and are held too.
 Phases (any failure exits nonzero and prints no result line):
   1. the card, its power limit, and the kernels' build (ptxas report: the
      registers and spills of the bf16 and f32 tensor-core kernels, the
-     gemv, the qmatmul and the vmacc kernels); ``cuobjdump -sass`` of the
-     matmul library must show HMMA, the tensor cores' instruction, in every
-     bf16 kernel and HMMA.*.F32.TF32 in every f32 kernel, that of the
-     qmatmul library IMMA (the integer one) in every kernel, and those of
-     the gemv and vmacc libraries a 128-bit global load in every kernel with
-     16-byte vectors;
+     gemv, the qmatmul, the vmacc and the attention kernels); ``cuobjdump
+     -sass`` of the matmul library must show HMMA, the tensor cores'
+     instruction, in every bf16 kernel and HMMA.*.F32.TF32 in every f32
+     kernel, that of the qmatmul library IMMA (the integer one) in every
+     kernel, those of the gemv and vmacc libraries a 128-bit global load in
+     every kernel with 16-byte vectors, and that of the attention library
+     HMMA in every kernel and HMMA.1688.F32.TF32 in every f32 one;
   2. each kernel against its plain PyTorch version on the same device
      tensors: qmatmul exact, f32 and bf16 matmul rtol 1e-4 / atol 1e-3
      (another sum order; bf16 products are exact in f32), bf16 op outputs
@@ -72,7 +80,9 @@ Phases (any failure exits nonzero and prints no result line):
      (QMM_SHAPES), at every block their H100 spaces offer, with K split by
      the kernel's rule and over no cluster, and on operands off the 16-byte
      grain; the unpadded _vmacc_kernel at 1e-5 on ragged shapes, f32 and
-     bf16, vector and scalar paths (a view at an odd offset);
+     bf16, vector and scalar paths (a view at an odd offset); _fa_kernel
+     at N3's, N4's and N8's shapes (seq 64, 512 and 2048) at split and
+     unsplit blocks, the ragged and no-visible-key shapes;
   3. tune W1-W3 (32 trials, seed 0) with launch counts zeroed just before
      and read just after; no candidate may be INVALID, dispatch must then
      resolve "tuned" and the tuned kernel's output must equal the plain
@@ -88,23 +98,27 @@ Phases (any failure exits nonzero and prints no result line):
      ``_acc_kernel`` must launch there;
   4d. the same for MobileNetV2 f32 and DCGAN f32, with their own launch
      counts; the f32 ``_acc_kernel`` must launch there;
+  4e. the same for the long-context attention workloads (N8), with their
+     own launch counts; ``_fa_kernel`` must launch there;
   5. the timer's floor (a one-element fill_, a 16x16 gemv); _gemv_kernel at
      the down projection and _qmm_kernel at 64 x 576 x 1536 with and
      without their clusters; a torch.profiler count of the card's kernels in
      one ``kernels.build(wl, params)`` call at MobileNetV2's 196 x 192 vmacc
      and 12544 x 32 x 27 qmatmul, which must be 1; per kernel:
-     launches on the main paths (phases 3, 4, 4b, 4c and 4d), time,
+     launches on the main paths (phases 3 to 4e), time,
      plain version's time, library call's time and the card's bound, as one
      JSON line (``_acc_kernel`` and ``_noacc_kernel`` at W3, the gemv
-     kernels at the LM head, ``_fa_kernel`` at MobileLLM's prefill;
-     ``_acc_kernel`` at the bf16 LM head, both gemv kernels at the decode
-     step's down and up projections, ``_fa_kernel`` at sequence 2048, the
-     best rung of its ladder, ``_qmm_kernel`` at MobileLLM prefill's 64 x
+     kernels at the LM head, ``_fa_kernel`` at MobileLLM's prefill at seq
+     64 and 2048; ``_acc_kernel`` at the bf16 LM head, both gemv kernels at
+     the decode step's down and up projections, ``_fa_kernel`` at BERT-tiny
+     seq 512 (its tuned blocks; SDPA's backend named beside each attention
+     row), ``_qmm_kernel`` at MobileLLM prefill's 64 x
      576 x 1536 and MobileNetV2's classifier 1 x 1000 x 1280,
      ``_vmacc_kernel`` at 196 x 192 are on the line of all rows; the f32
      ``_acc_kernel`` and ``_noacc_kernel`` at W3, the f32 ``_acc_kernel`` at
      MobileNetV2 f32's costliest matmul and DCGAN's 1024 x 64 x 512 on
-     both, with the 3xTF32 figure beside the bound). A row's bound counts
+     both; the 3xTF32 figure beside the bound of every f32 matmul and
+     attention row). A row's bound counts
      the bytes and operations of the operands the path hands the kernel:
      the real, unpadded ones for qmatmul and vmacc.
 The last line is {"ok": true, "device": {...}}.
@@ -142,6 +156,7 @@ SLICE2 = ("_qmm_kernel", "_gemv_kernel", "_gemv_noacc_kernel",
 SLICE3 = ("_qmm_kernel", "_fa_kernel")
 SLICE4 = ("_acc_kernel",)
 SLICE7 = ("_acc_kernel",)
+SLICE8 = ("_fa_kernel",)
 # The f32 matmul kernels' shapes in phase 2: W3 in f32, an odd shape,
 # MobileNetV2 f32's (N6) 12544x32x27, 3136x24x96 and 49x1280x320 and
 # DCGAN's (N7) 16x512x100 and 4096x3x256.
@@ -357,6 +372,27 @@ def main() -> int:
               f"global loads")
         if not label.endswith(",1>") and n_128 == 0:
             raise RuntimeError(f"{label} has no 128-bit global load")
+    print("attention kernels (flash_attention.cu), ptxas and SASS:")
+    resources = ptxas_resources(_build.build_log(), fa_ops.kernel_label)
+    sass = {fa_ops.kernel_label(name): body
+            for name, body in _build.sass("flash_attention").items()
+            if fa_ops.kernel_label(name)}
+    if set(sass) != set(fa_ops.kernel_labels()) or \
+            set(sass) != set(resources):
+        raise RuntimeError(f"attention kernels in the SASS {sorted(sass)} and "
+                           f"the ptxas report {sorted(resources)} differ")
+    for label, body in sorted(sass.items()):
+        n_hmma = len(fa_ops.HMMA.findall(body))
+        n_tf32 = body.count("HMMA.1688.F32.TF32")
+        res = resources[label]
+        print(f"  {label}: {res['registers']} registers, spill stores/loads "
+              f"{res['spills'][0]}/{res['spills'][1]} bytes, {n_hmma} HMMA "
+              f"instructions, {n_tf32} of them HMMA.1688.F32.TF32")
+        if n_hmma == 0:
+            raise RuntimeError(f"{label} has no HMMA: not on the tensor cores")
+        if "f32" in label and n_tf32 == 0:
+            raise RuntimeError(f"{label} has no HMMA.1688.F32.TF32: not "
+                               f"3xTF32 on the tensor cores")
 
     wl1 = W.qmatmul(3136, 64, 576)
     wl2 = W.qmatmul(64, 32000, 576)
@@ -725,6 +761,7 @@ def main() -> int:
     mha = W.attention(1, 2, 2, 64, 64, 64, causal=False)   # BERT-tiny
     gqa = W.attention(1, 9, 3, 64, 64, 64)                 # MobileLLM-125M
     gqa_long = W.attention(1, 9, 3, 2048, 2048, 64)        # at max_seq_len
+    mha_long = W.attention(1, 2, 2, 512, 512, 64, causal=False)
     for variant in ("fa_128x128", "fa_16x16"):
         check_attention(mha, variant, "BERT-tiny MHA")
     for variant in ("fa_64x32", "fa_16x64"):
@@ -736,16 +773,27 @@ def main() -> int:
     for variant in ("fa_16x16", "fa_32x64"):
         check_attention(ragged, variant, "ragged 17x33")
         check_attention(no_key, variant, "no-visible-key 33x17")
-    check_attention(gqa_long, "fa_128x128", "MobileLLM GQA causal seq 2048")
+    # N8: both models at their published max_seq_len; split KV columns
+    # (16 x 64: four warps, 32 x 128: two) and unsplit blocks
+    for variant in ("fa_16x64", "fa_32x128", "fa_64x64", "fa_128x128"):
+        check_attention(mha_long, variant, "BERT-tiny MHA seq 512")
+        check_attention(gqa_long, variant, "MobileLLM GQA causal seq 2048")
+    check_attention(W.attention(1, 2, 2, 512, 512, 64, "bfloat16",
+                                causal=False), "fa_16x128",
+                    "BERT-tiny MHA seq 512")
     # Scores of standard deviation ~4 instead of ~0.25: the running max
     # moves between KV blocks, so the rescale by alpha and the exp path
-    # carry the result.
+    # carry the result (and 3xTF32 in QK^T: one TF32 pass would not).
     check_attention(mha, "fa_16x16", "BERT-tiny MHA, sharp scores",
                     Q_SHARP)
     check_attention(gqa, "fa_16x16", "MobileLLM GQA causal, sharp scores",
                     Q_SHARP)
-    check_attention(gqa_long, "fa_128x128",
-                    "MobileLLM GQA causal seq 2048, sharp scores", Q_SHARP)
+    check_attention(mha_long, "fa_16x64", "BERT-tiny MHA seq 512, sharp "
+                    "scores", Q_SHARP)
+    for variant in ("fa_16x128", "fa_64x64", "fa_128x128"):
+        check_attention(gqa_long, variant,
+                        "MobileLLM GQA causal seq 2048, sharp scores",
+                        Q_SHARP)
 
     # ---------------------------------------------------------------- 3 ----
     phase(f"3. main path, one operator: tune W1-W3 ({TRIALS} trials, seed "
@@ -933,8 +981,39 @@ def main() -> int:
     for name in SLICE7:
         if launches4d[name] == 0:
             raise RuntimeError(f"{name} was not launched on the f32 path")
+
+    phase(f"4e. main path, long-context attention: the attention workloads "
+          f"of MobileLLM-125M at seq 2048 and BERT-tiny at seq 512 (their "
+          f"max_seq_len), TuningSession, depth 2, {PREFILL_TRIALS} trials per "
+          f"workload, seed {SEED}")
+
+    def attention_only(ops_list):
+        return [(c, wl) for c, wl in ops_list if wl.op == "attention"]
+
+    long_nets = {
+        "mobilellm_125m attention seq 2048": (attention_only(
+            nets.mobilellm_125m("int8", seq=2048)),
+            "mobilellm_125m-attention-2048"),
+        "bert_tiny attention seq 512": (attention_only(
+            nets.bert_tiny("int8", seq=512)), "bert_tiny-attention-512")}
+    kernels.reset_launch_counts()
+    sessions4e = {
+        net: TuningSession(H100, runner, database=net_db,
+                           pipeline_depth=2).tune_model(
+            ops, total_trials=PREFILL_TRIALS * len({wl.key()
+                                                    for _, wl in ops}),
+            seed=SEED, model=model)
+        for net, (ops, model) in long_nets.items()}
+    launches4e = kernels.launch_counts()
+    print(f"launches on the long-context attention path: {launches4e}")
+    report_networks(sessions4e)
+    for name in SLICE8:
+        if launches4e[name] == 0:
+            raise RuntimeError(f"{name} was not launched on the long-context "
+                               f"attention path")
     launches = {name: launches3[name] + launches4[name] + launches4b[name]
-                + launches4c[name] + launches4d[name] for name in REPLACES}
+                + launches4c[name] + launches4d[name] + launches4e[name]
+                for name in REPLACES}
 
     # ---------------------------------------------------------------- 5 ----
     phase("5. kernel times at the main paths' shapes")
@@ -1013,6 +1092,9 @@ def main() -> int:
         tf32 = {}
         if wl.op == "matmul" and wl.dtype == "float32":
             tf32["bound_3xtf32_ms"] = 3 * 2.0 * pm * pn * pk / PEAK_TF32 * 1e3
+        if wl.op == "attention" and wl.dtype == "float32":
+            tf32["bound_3xtf32_ms"] = (3 * attention_visible_ops(wl)
+                                       / PEAK_TF32 * 1e3)
         r = {"name": name, "route": "cuda", "source": SOURCE[name],
              "replaces": REPLACES[name],
              "launches": launches[name], "max_abs_err": err[name],
@@ -1158,27 +1240,41 @@ def main() -> int:
         if len(names_seen) != 1:
             raise RuntimeError(f"{wl.key()}: {len(names_seen)} kernels in "
                                f"one call, not 1")
+    def sdpa_backend(wl, x):
+        """Which SDPA backend ran: the card's kernels in one call."""
+        seen = " ".join(device_kernels(kernels.baseline(wl), x)).lower()
+        if "flash" in seen:
+            return "flash"
+        if "fmha" in seen or "efficient" in seen or "cutlass" in seen:
+            return "efficient"
+        return "math"
+
     fa_row = row("_fa_kernel", gqa, net_best_of(gqa),
                  "MobileLLM prefill seq 64")
+    mha_long_row = row("_fa_kernel", mha_long, net_best_of(mha_long),
+                       "BERT-tiny seq 512")
+    fa_long_row = row("_fa_kernel", gqa_long, net_best_of(gqa_long),
+                      "MobileLLM prefill seq 2048")
+    for r, wl in ((fa_row, gqa), (mha_long_row, mha_long),
+                  (fa_long_row, gqa_long)):
+        r["sdpa_backend"] = sdpa_backend(wl, runner.inputs(wl))
+        print(f"  _fa_kernel {r['workload']}: SDPA ran its "
+              f"{r['sdpa_backend']} backend")
     ladder = {v: runner.run(gqa_long, Schedule.fixed(variant=v))
               for v in space_for(gqa_long, H100)["variant"]}
-    best_long = min(ladder, key=ladder.get)
     print("  seq 2048 ladder (us, the op as dispatch builds it): "
           + ", ".join(f"{v} {t*1e6:.1f}" for v, t in ladder.items()))
-    row("_fa_kernel", gqa_long,
-        concretize(gqa_long, H100, Schedule.fixed(variant=best_long)),
-        "MobileLLM prefill seq 2048")
     print("  (_fa_kernel bounds count the operations of the visible "
           "(query, key) pairs only)")
     print("rows " + json.dumps(rows))
     print(card_line)
-    strip = ("workload", "block", "bound_3xtf32_ms")
+    strip = ("workload", "block", "bound_3xtf32_ms", "sdpa_backend")
     print(json.dumps({"kernels": [{k: v for k, v in r.items()
                                    if k not in strip}
                                   for r in (acc3, noacc3, qmm2, gemv_acc,
                                             gemv_noacc, vmacc_row, fa_row,
-                                            acc3_f32, noacc3_f32, n6_row,
-                                            n7_row)]}))
+                                            fa_long_row, acc3_f32,
+                                            noacc3_f32, n6_row, n7_row)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

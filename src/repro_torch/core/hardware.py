@@ -151,8 +151,10 @@ INTERPRET = HardwareConfig(
 )
 
 # NVIDIA H100 SXM (data sheet, dense rates; hopper white paper for the
-# per-block shared-memory limit). f32 is the non-tensor-core rate the port's
-# CUDA-core kernels run at.
+# per-block shared-memory limit). f32 is the data sheet's non-tensor-core
+# rate, kept as the cost model's f32 figure; the port's f32 matmul and
+# attention kernels run on the tensor cores as 3xTF32 (three TF32 products
+# per f32 product at the dense TF32 rate of 494.7 TFLOP/s).
 H100 = CudaHardwareConfig(
     name="h100_sxm",
     peak_flops_bf16=989e12,

@@ -199,26 +199,7 @@ inline bool tc_shape_ok(int M, int N, int K, int bm, int bn, int bk) {
          (long long)bm * bn <= TM * TN * MAX_THREADS;
 }
 
-// A thread's walk over the 16-byte chunks of a tile with `cols` chunks a
-// row: chunks threadIdx.x, threadIdx.x + blockDim.x, ... as (row, col),
-// with the divisions done once per kernel, not once per chunk.
-struct ChunkWalk {
-  int r0, c0, dr, dc, cols;
-  __device__ explicit ChunkWalk(int cols_) : cols(cols_) {
-    r0 = threadIdx.x / cols;
-    c0 = threadIdx.x - r0 * cols;
-    dr = blockDim.x / cols;
-    dc = blockDim.x - dr * cols;
-  }
-  __device__ void next(int& r, int& c) const {
-    r += dr;
-    c += dc;
-    if (c >= cols) {
-      c -= cols;
-      ++r;
-    }
-  }
-};
+using mma::ChunkWalk;
 
 // Issue (and commit as one group) the cp.async copies of the k step at k0:
 // x rows [m0, m0+bm) x cols [k0, k0+bk) into xs, w rows [k0, k0+bk) x cols
@@ -505,11 +486,7 @@ struct F32Args {
   int M, N, K, bm, bn, bk, n_major, cluster;
 };
 
-// v = hi + lo to about 2^-22 of v, both TF32.
-__device__ inline void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  hi = mma::tf32_rna(v);
-  lo = mma::tf32_rna(v - __uint_as_float(hi));
-}
+using mma::split_tf32;
 
 // acc += the staged x tile's rows [wm0, wm0 + 16*WMF) @ the w tile's
 // columns [wn0, wn0 + 16*WNF), over the bk of the stage, as 3xTF32.
@@ -537,6 +514,9 @@ __device__ inline void f32_warp_product(const float* xs, const float* ws,
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int e = 0; e < 4; ++e) d[i][j][h][e] = 0.f;
+  // four k8 chunks deep: each chunk's splits are a few integer
+  // instructions, and ptxas does not unroll the loop unasked
+#pragma unroll 4
   for (int kk = 0; kk < bk; kk += 8) {
     uint32_t a_hi[WMF][4], a_lo[WMF][4];
 #pragma unroll

@@ -1,7 +1,9 @@
 // PTX wrappers for the tensor-core kernels: cp.async copies from device to
-// shared memory (16 bytes for the bf16 and f32 matmul, matmul.cu; 16, 8 or
-// 4 bytes with zero fill for the int8 qmatmul, qmatmul.cu), ldmatrix
-// fragment loads, the TF32 rounding and the warp-level mma.sync products:
+// shared memory (16 bytes for the bf16 and f32 matmul, matmul.cu, and the
+// attention, flash_attention.cu; 16, 8 or 4 bytes with zero fill for the
+// int8 qmatmul, qmatmul.cu) and a thread's walk over a tile's 16-byte
+// chunks, ldmatrix fragment loads, the TF32 rounding and 3xTF32 split and
+// the warp-level mma.sync products:
 // m16n8k16 bf16 and m16n8k8 TF32 with f32 accumulators, m16n8k32 s8 with
 // s32 accumulators. Each wrapper is one instruction; the fragment layouts
 // are those of the PTX ISA ("Matrix Fragments for mma.m16n8k16", "for
@@ -46,6 +48,27 @@ __device__ inline void cp_async_zfill(void* dst, const void* src,
                  "l"(src), "n"(V), "r"(n)
                  : "memory");
 }
+
+// A thread's walk over the 16-byte chunks of a tile with `cols` chunks a
+// row: chunks threadIdx.x, threadIdx.x + blockDim.x, ... as (row, col),
+// with the divisions done once per kernel, not once per chunk.
+struct ChunkWalk {
+  int r0, c0, dr, dc, cols;
+  __device__ explicit ChunkWalk(int cols_) : cols(cols_) {
+    r0 = threadIdx.x / cols;
+    c0 = threadIdx.x - r0 * cols;
+    dr = blockDim.x / cols;
+    dc = blockDim.x - dr * cols;
+  }
+  __device__ void next(int& r, int& c) const {
+    r += dr;
+    c += dc;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
+    }
+  }
+};
 
 __device__ inline void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -94,11 +117,20 @@ __device__ inline void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // v rounded to TF32 (10 mantissa bits), to nearest with ties away from
-// zero; the low 13 bits of the result are zero.
+// zero; the low 13 bits of the result are zero. The same bits as
+// cvt.rna.tf32.f32 for every finite value and infinity (half a unit added
+// to the magnitude carries into the exponent as rounding does), in two
+// integer instructions where the cvt compiles to a sequence that tests for
+// NaN and infinity; only a NaN whose payload lies in the low 13 bits would
+// come out as infinity.
 __device__ inline uint32_t tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = hi + lo to about 2^-22 of v, both TF32 (3xTF32's operand split).
+__device__ inline void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
 }
 
 // d += a (16x8, row-major) @ b (8x8, column-major), TF32 in, f32 sum. a0 is

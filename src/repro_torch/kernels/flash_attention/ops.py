@@ -1,7 +1,12 @@
 """Public wrapper of the flash-attention kernel: cast -> reshape -> pad ->
-kernel -> slice, per a schedule, plus the kernel's block-shape gate."""
+kernel -> slice, per a schedule, plus the kernel's block-shape gate, its
+shared-memory footprint and the Python mirror of its launch layout
+(``csrc/flash_attention.cu``: ``fa_plan``)."""
 
 from __future__ import annotations
+
+import dataclasses
+import re
 
 import torch
 import torch.nn.functional as F
@@ -10,27 +15,97 @@ from repro_torch.core.space import KernelParams
 from repro_torch.core.workload import dtype_bytes
 from repro_torch.kernels.matmul.ops import TORCH_DTYPES
 
+# csrc/flash_attention.cu: one warp per 16 query rows (one mma m16), a
+# FA_STAGES-deep cp.async ring of k and v tiles, shared rows padded by
+# FA_ROW_PAD bytes; a block splits each KV tile's columns over warps while
+# it has fewer than FA_MIN_WARPS; bq at most FA_MAX_BQ (8 warps), the head
+# dim at most FA_MAX_PD, bq, bkv and pd multiples of FA_FRAG.
+FA_FRAG = 16
+FA_STAGES = 2
+FA_ROW_PAD = 16
+FA_MIN_WARPS = 4
+FA_MAX_BQ = 128
+FA_MAX_PD = 256
+
 
 def smem_bytes(bq: int, bkv: int, pd: int, dtype: str) -> int:
     """Dynamic shared memory of one block (csrc/flash_attention.cu:
-    fa_smem_bytes): the q, transposed k (one padding column) and v tiles in
-    the input dtype, rounded up to 16 bytes, then the f32 scores (bq, bkv),
-    accumulator (bq, pd) and running max and sum (bq each)."""
-    tiles = (bq * pd + pd * (bkv + 1) + bkv * pd) * dtype_bytes(dtype)
-    tiles = -(-tiles // 16) * 16
-    return tiles + (bq * bkv + bq * pd + 2 * bq) * 4
+    fa_smem_bytes): the q tile and FA_STAGES stages of a k and a v tile, in
+    the input dtype, every row padded by FA_ROW_PAD bytes. Nondecreasing in
+    each of bq, bkv and pd (the static analyzer relies on it)."""
+    return (bq + 2 * FA_STAGES * bkv) * (pd * dtype_bytes(dtype) + FA_ROW_PAD)
 
 
 def supports_block_shape(bq: int, bkv: int, pd: int, dtype: str,
                          smem_limit: int) -> bool:
     """Can the CUDA kernel launch a (bq, bkv) block at padded head dim
-    ``pd``? The kernel runs 256 threads whatever the block (each warp loops
-    over its rows, each lane over its columns), so neither a thread limit
-    nor a grain binds: only positive extents and its shared memory, which
-    must fit ``smem_limit`` bytes."""
-    if min(bq, bkv, pd) < 1:
+    ``pd``? bq, bkv and pd are multiples of the 16-row mma fragment, bq at
+    most 128 (8 warps), pd at most 256 (the largest register class of the
+    accumulator), the dtype f32 or bf16, and the block's shared memory
+    (``smem_bytes``) fits ``smem_limit`` bytes."""
+    if dtype not in ("float32", "bfloat16") or min(bq, bkv, pd) < FA_FRAG:
+        return False
+    if bq % FA_FRAG or bkv % FA_FRAG or pd % FA_FRAG:
+        return False
+    if bq > FA_MAX_BQ or pd > FA_MAX_PD:
         return False
     return smem_bytes(bq, bkv, pd, dtype) <= smem_limit
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The launch-time layout ``fa_plan`` in ``csrc/flash_attention.cu``
+    computes."""
+    wq: int        # warps down the query rows (bq / 16)
+    wk: int        # warps across each KV tile's columns
+    warps: int
+    cols: int      # KV columns per warp
+    dclass: int    # register class of the head dim (64, 128 or 256)
+    sub: int       # key columns per sub-tile (64, 32 or 16, dividing cols)
+    exact: bool    # the instantiation without head-dim predicates (pd 64)
+
+
+def plan(bq: int, bkv: int, pd: int) -> Plan:
+    """The kernel's layout for a (bq, bkv) block at padded head dim ``pd``:
+    the rules of ``fa_plan``, step for step."""
+    wq, wk = bq // FA_FRAG, 1
+    while (bkv // FA_FRAG) % (2 * wk) == 0 and wq * wk * 2 <= FA_MIN_WARPS:
+        wk *= 2
+    dclass = 64 if pd <= 64 else 128 if pd <= 128 else 256
+    cols = bkv // wk
+    sub = 64 if cols % 64 == 0 and dclass != 256 else \
+        32 if cols % 32 == 0 else 16
+    return Plan(wq=wq, wk=wk, warps=wq * wk, cols=cols, dclass=dclass,
+                sub=sub, exact=pd == 64)
+
+
+_MANGLED = re.compile(
+    r"fa_tc_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELb([01])E")
+# Any tensor-core product in SASS; the f32 kernels must show the TF32 one
+# (kernels.matmul.ops.HMMA_TF32).
+HMMA = re.compile(r"\bHMMA\.")
+
+
+def kernel_label(mangled: str) -> str | None:
+    """``fa_tc_kernel<f32|bf16,DC,SUBT,exact|any>`` for the mangled name of
+    one of ``csrc/flash_attention.cu``'s kernels, else None."""
+    m = _MANGLED.search(mangled)
+    if m is None:
+        return None
+    return (f"fa_tc_kernel<{'f32' if m[1] == 'f' else 'bf16'},{m[2]},{m[3]},"
+            f"{'exact' if m[4] == '1' else 'any'}>")
+
+
+def kernel_labels() -> list[str]:
+    """Every instantiation ``fa_launch`` can pick: per dtype, head-dim class
+    64 (exact and not) with sub-tiles of 8, 4 and 2 key tiles, 128 with
+    8, 4 and 2, 256 with 4 and 2."""
+    return [f"fa_tc_kernel<{t},{dc},{sub},{kind}>"
+            for t in ("f32", "bf16")
+            for dc, kinds, subs in ((64, ("exact", "any"), (8, 4, 2)),
+                                    (128, ("any",), (8, 4, 2)),
+                                    (256, ("any",), (4, 2)))
+            for kind in kinds for sub in subs]
 
 
 def pad_operands(params: KernelParams, q, k, v, device: str = "cuda"):

@@ -264,13 +264,14 @@ def test_h100_footprint_is_the_kernels_shared_memory(dims, causal):
 
 
 @pytest.mark.parametrize("dtype,pd,inside", [
-    ("float32", 80, True), ("float32", 81, False),
-    ("bfloat16", 128, True), ("bfloat16", 144, False),
+    ("float32", 80, True), ("float32", 96, False),
+    ("bfloat16", 160, True), ("bfloat16", 176, False),
 ])
 def test_h100_launch_gate_rejects_what_does_not_fit(dtype, pd, inside):
     """fa_128x128 at a head dim whose shared memory crosses the H100's
-    232,448 bytes: refused by the gate (so INVALID), and only on the card's
-    configuration."""
+    232,448 bytes (the q tile and a two-stage k/v ring, rows of pd values
+    plus 16 bytes: 640 rows of 336 bytes fit, of 400 do not): refused by
+    the gate (so INVALID), and only on the card's configuration."""
     assert fa_ops.supports_block_shape(128, 128, pd, dtype,
                                        H100.vmem_capacity) is inside
     assert (fa_ops.smem_bytes(128, 128, pd, dtype) <= 232_448) is inside
@@ -284,7 +285,8 @@ def test_h100_launch_gate_rejects_what_does_not_fit(dtype, pd, inside):
 
 def test_smem_bytes_is_nondecreasing_in_each_block_dim():
     for dtype in ("float32", "bfloat16"):
-        for bq, bkv, pd in [(16, 16, 16), (64, 32, 64), (128, 128, 80)]:
+        for bq, bkv, pd in [(16, 16, 16), (64, 32, 64), (128, 128, 80),
+                            (112, 256, 240)]:
             base = fa_ops.smem_bytes(bq, bkv, pd, dtype)
             assert fa_ops.smem_bytes(bq + 16, bkv, pd, dtype) >= base
             assert fa_ops.smem_bytes(bq, bkv + 16, pd, dtype) >= base
@@ -309,7 +311,8 @@ def test_feasibility_matches_reference(name, dims, causal):
 @pytest.mark.parametrize("dims,causal,dtype", [
     ((1, 9, 3, 64, 64, 64), True, "float32"),
     ((1, 2, 2, 256, 256, 128), False, "float32"),   # the widest rungs refused
-    ((1, 2, 2, 256, 256, 128), False, "bfloat16"),
+    ((1, 2, 2, 256, 256, 128), False, "bfloat16"),  # every rung fits
+    ((1, 2, 2, 256, 256, 256), False, "float32"),   # most rungs refused
 ])
 def test_h100_analyzer_matches_exhaustive_enumeration(dims, causal, dtype):
     _, wl = _pair(dims, causal, dtype)

@@ -644,16 +644,19 @@ def _fa_params(pd, dtype):
 def test_fa_gate_matches_kernel_limits(cuda, dtype, inside):
     """The Python gate (``flash_attention.ops.supports_block_shape``) and
     the kernel's own shared-memory request agree on both sides of the
-    H100's limit: the largest head dim the gate accepts for a (128, 128)
-    block launches and is right, one more is refused by the card."""
-    pd = 1
-    while fa_ops.supports_block_shape(128, 128, pd + 1, dtype,
+    H100's limit: the largest head dim (a multiple of 16, the kernel's
+    grain) the gate accepts for a (128, 128) block launches and is right,
+    the next one is refused by the card."""
+    pd = 16
+    while fa_ops.supports_block_shape(128, 128, pd + 16, dtype,
                                       H100.vmem_capacity):
-        pd += 1
+        pd += 16
     if not inside:
-        pd += 1
+        pd += 16
     assert fa_ops.supports_block_shape(128, 128, pd, dtype,
                                        H100.vmem_capacity) is inside
+    assert (fa_ops.smem_bytes(128, 128, pd, dtype)
+            <= H100.vmem_capacity) is inside
     params = _fa_params(pd, dtype)
     wl = W.attention(*params.dims, dtype)
     if inside:
@@ -664,6 +667,128 @@ def test_fa_gate_matches_kernel_limits(cuda, dtype, inside):
             flash_attention_blocked(q, k, v, params)
         assert err.value.refused
     torch.cuda.synchronize()  # the context survived
+
+
+# The attention workloads the main paths tune: BERT-tiny (N3) and
+# MobileLLM-125M (N4) at seq 64, and both at their published max_seq_len
+# (N8: 512 and 2048).
+FA_NETWORK_DIMS = [(1, 2, 2, 64, 64, 64), (1, 9, 3, 64, 64, 64),
+                   (1, 2, 2, 512, 512, 64), (1, 9, 3, 2048, 2048, 64)]
+
+
+def _space_blocks(wl):
+    """Every (bq, bkv) block the workload's H100 space offers, as params."""
+    found = {}
+    for t in space_for(wl, H100).traces():
+        p = concretize(wl, H100, Schedule.fixed(**t))
+        found.setdefault(p.block, p)
+    return [found[b] for b in sorted(found)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dims", FA_NETWORK_DIMS, ids=str)
+def test_fa_kernel_matches_plain_at_every_space_block(cuda, dims, causal,
+                                                      dtype):
+    """``_fa_kernel`` at every block of the H100 space of N3's, N4's and
+    N8's attention shapes, causal and not, f32 and bf16, against its plain
+    version at 2e-3 (split and unsplit KV columns, every register class
+    the networks reach)."""
+    wl = W.attention(*dims, dtype, causal=causal)
+    params = _space_blocks(wl)
+    assert len(params) == (9 if dims[3] == 64 else 16)
+    assert {fa_ops.plan(*p.block, p.padded_dims[5]).wk for p in params} \
+        == {1, 2, 4}
+    for p in params:
+        _fa_check(wl, p)
+
+
+@pytest.mark.parametrize("dims,causal,dtype", [
+    ((1, 2, 1, 17, 33, 8), True, "float32"),     # ragged
+    ((1, 2, 1, 17, 33, 8), True, "bfloat16"),
+    ((1, 2, 1, 33, 17, 8), True, "float32"),     # no visible key
+    ((1, 2, 1, 33, 17, 8), True, "bfloat16"),
+    ((1, 3, 1, 40, 72, 136), True, "float32"),   # head dim class 256
+    ((1, 2, 2, 48, 80, 96), False, "bfloat16"),  # head dim class 128
+])
+def test_fa_kernel_matches_plain_on_ragged_shapes(cuda, dims, causal, dtype):
+    """Ragged lengths and head dims, and the no-visible-key rows, at every
+    block of the shape's H100 space."""
+    wl = W.attention(*dims, dtype, causal=causal)
+    for p in _space_blocks(wl):
+        _fa_check(wl, p)
+
+
+@pytest.mark.parametrize("dims,causal,variant", [
+    ((1, 2, 2, 512, 512, 64), False, "fa_16x64"),
+    ((1, 9, 3, 2048, 2048, 64), True, "fa_64x64"),
+    ((1, 9, 3, 2048, 2048, 64), True, "fa_16x128"),
+])
+def test_fa_kernel_matches_plain_on_peaked_scores_at_max_seq(cuda, dims,
+                                                             causal, variant):
+    """q scaled 16x at the N8 shapes: 3xTF32 holds exp(s - m) within 2e-3
+    of the plain version where the scores are peaked."""
+    wl = W.attention(*dims, causal=causal)
+    _fa_check(wl, concretize(wl, H100, Schedule.fixed(variant=variant)),
+              q_scale=16.0)
+
+
+def _bf16_half_ulp(y):
+    """Half a bf16 unit in the last place at |y| (8 significand bits)."""
+    _, e = torch.frexp(y.abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(y), e - 9)
+
+
+@pytest.mark.parametrize("dims,causal,variant", [
+    ((1, 9, 3, 64, 64, 64), True, "fa_16x64"),
+    ((1, 2, 2, 512, 512, 64), False, "fa_16x64"),
+    ((1, 9, 3, 2048, 2048, 64), True, "fa_64x64"),
+])
+def test_fa_kernel_bf16_on_peaked_scores_is_a_rounding_of_plain(
+        cuda, dims, causal, variant):
+    """bf16 on peaked scores (q scaled 16x): outputs are single v rows of
+    magnitude up to ~2, where one bf16 unit (2^-8 to 2^-7) exceeds 2e-3, so
+    two computations that differ in f32 by 1e-6 may round apart. The
+    kernel's bf16 output is the bf16 rounding of a value within 2e-3 of the
+    plain version's f32 result on the same bf16 operands (the plain
+    version's arithmetic before its cast to bf16)."""
+    wl = W.attention(*dims, "bfloat16", causal=causal)
+    params = concretize(wl, H100, Schedule.fixed(variant=variant))
+    q, k, v = wl.example_inputs()
+    q, k, v = fa_ops.pad_operands(params, q * 16.0, k, v, "cuda")
+    got = flash_attention_blocked(q, k, v, params).float()
+    want = fa_plain_version(q.float(), k.float(), v.float(), params)
+    torch.cuda.synchronize()
+    bound = FA_TOL + FA_TOL * want.abs() + _bf16_half_ulp(got)
+    assert bool(torch.all((got - want).abs() <= bound)), \
+        float(((got - want).abs() - bound).max())
+
+
+@pytest.mark.parametrize("variant", ["fa_16x64", "fa_32x128", "fa_128x64"])
+def test_fa_kernel_is_the_same_from_run_to_run(cuda, variant):
+    """The cross-warp combine runs in a fixed order: two launches on the
+    same operands give the same bits (split blocks and an unsplit one)."""
+    wl = W.attention(1, 9, 3, 2048, 2048, 64)
+    params = concretize(wl, H100, Schedule.fixed(variant=variant))
+    q, k, v = fa_ops.pad_operands(params, *wl.example_inputs(), "cuda")
+    first = flash_attention_blocked(q, k, v, params)
+    second = flash_attention_blocked(q, k, v, params)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_fa_kernels_run_on_tensor_cores(cuda):
+    """Every kernel of csrc/flash_attention.cu (f32 and bf16, each head-dim
+    register class and sub-tile width) issues HMMA, the f32 ones as TF32
+    products."""
+    functions = {fa_ops.kernel_label(name): body
+                 for name, body in _build.sass("flash_attention").items()
+                 if fa_ops.kernel_label(name)}
+    assert sorted(functions) == sorted(fa_ops.kernel_labels())
+    for label, body in functions.items():
+        assert fa_ops.HMMA.search(body), label
+        if "f32" in label:
+            assert matmul_ops.HMMA_TF32.search(body), label
 
 
 def test_cuda_runner_tunes_attention(cuda):
