@@ -5,7 +5,7 @@ The main path is the paper's tuning loop: a workload -> its design-space
 program -> concretized kernel parameters -> a CUDA kernel built from
 ``src/repro_torch/kernels/csrc`` -> timed on the card by ``CudaRunner`` ->
 ``tune`` (sampler, evolution, cost model) -> ``TuningDatabase`` ->
-``dispatch.kernel_params``. Two paths drive it, each at the published
+``dispatch.kernel_params``. These paths drive it, each at the published
 widths, unreduced:
 
 - one operator at a time (``tune``), at three workloads of the paper's
@@ -38,6 +38,10 @@ widths, unreduced:
   classifier) and the DCGAN
   generator (``repro_torch.nets.dcgan()``: 5 f32 matmuls) through
   ``TuningSession`` at pipeline depth 2;
+
+- the serving path (phase 6): MobileLLM-125M unreduced through the
+  port's ``Server``, whose dispatch misses feed a ``TrafficLog`` that a
+  ``ContinuousTuner`` tunes on the card, at batch 1 and batch 4;
 
 - long-context attention (N8): the attention workloads of MobileLLM-125M
   at its max_seq_len 2048 (``attention(1, 9, 3, 2048, 2048, 64)`` f32
@@ -120,7 +124,24 @@ Phases (any failure exits nonzero and prints no result line):
      both; the 3xTF32 figure beside the bound of every f32 matmul and
      attention row). A row's bound counts
      the bytes and operations of the operands the path hands the kernel:
-     the real, unpadded ones for qmatmul and vmacc.
+     the real, unpadded ones for qmatmul and vmacc;
+  6. the serving path: MobileLLM-125M unreduced (30 layers, d_model 576,
+     9 query and 3 KV heads, bf16 compute on f32 master weights from a
+     seeded generator) through ``Server`` with 64-token prompts and 32
+     generated tokens. At batch 1 and at batch 4: a cold round must resolve
+     {"fixed": 151} and leave the five decode shapes in the ``TrafficLog``,
+     one ``ContinuousTuner.tune_once()`` on ``CudaRunner`` (16 trials a
+     shape) tunes them (the gemv kernels at batch 1, the bf16 matmul
+     kernels at four rows at batch 4), the next round must resolve
+     {"tuned": 151}, each tuned schedule's output on the card must equal
+     its plain version's on the CPU (bf16, 5e-2), and of two rounds with
+     ``build_kernels`` the second must build nothing; then the tuner in the background (start, generate,
+     wait_idle, generate: "tuned"); then (a) in f32 with TF32 off, greedy
+     decode equal to the argmax of the full forward wherever its top-1/
+     top-2 margin exceeds 1e-3, (b) the f32 prefill and first 8 decode
+     steps' logits on the card equal to the CPU's within 1e-3, and
+     ``python -m repro_torch.launch.serve --continuous-tune --rounds 2``
+     exiting 0. Its launches join the kernels line's.
 The last line is {"ok": true, "device": {...}}.
 
 Run:  python3 chip_smoke.py      (needs one CUDA card and nvcc)
@@ -134,6 +155,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -233,6 +255,285 @@ def attention_visible_ops(wl) -> float:
     else:
         pairs = lq * lkv
     return 4.0 * b * hq * pairs * d
+
+
+# Phase 6: MobileLLM-125M unreduced through the serving path. Prompts of the
+# paper's sequence length, 32 generated tokens, 16 tuning trials a shape.
+SERVE_PROMPT, SERVE_GEN, SERVE_TRIALS = 64, 32, 16
+
+
+def serving_phase(runner, card_line: str, close) -> dict[str, int]:
+    """Phase 6: the port's serving path at MobileLLM-125M's full width —
+    ``Server`` resolving each decode step's workloads through dispatch,
+    misses into a ``TrafficLog``, ``ContinuousTuner`` cycles on
+    ``CudaRunner``, the database flipping later rounds to "tuned" — at
+    batch 1 (the gemv kernels) and batch 4 (the bf16 matmul kernels at four
+    rows), then in the background, then the f32 and card-against-CPU
+    checks and the launcher. Returns the launch counts of its serving
+    loops (each zeroed just before and read just after)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core import (H100, ContinuousTuner, TrafficLog,
+                                  TuningDatabase, build_cache_stats,
+                                  kernel_params)
+    from repro_torch.models.model_zoo import build
+    from repro_torch.runtime.serve_loop import Server, decode_ops
+
+    cfg = get_config("mobilellm_125m")  # unreduced
+    widths = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+              cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.tie_embeddings,
+              cfg.dtype)
+    if widths != (30, 576, 9, 3, 64, 1536, 32000, True, "bfloat16"):
+        raise RuntimeError(f"mobilellm_125m is not at its published widths: "
+                           f"{widths}")
+    bundle = build(cfg, remat="none")
+    params = bundle.init(torch.Generator().manual_seed(SEED))
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"  {cfg.name}: {n_params} parameters, f32 master weights "
+          f"{n_params * 4 / 2**20:.1f} MiB on {params.embedding.device}; "
+          f"compute {cfg.dtype}; prompts {SERVE_PROMPT}, {SERVE_GEN} "
+          f"generated tokens ({SERVE_GEN - 1} decode steps after the "
+          f"prefill's token)")
+    print(f"  card: {card_line}")
+    max_len = SERVE_PROMPT + SERVE_GEN + 1
+    # every projection casts its f32 master weight to the compute dtype, as
+    # the reference's .astype(x.dtype) does: bytes read and written per step
+    from repro_torch.core.runner import CardTimer
+
+    mats = [p for p in params.parameters() if p.dim() >= 2]
+    per_layer = [m for m in mats if m.dim() == 3]
+    cast_bytes = sum(m.numel() for m in mats) * (4 + 2)
+    cast_s = CardTimer(repeats=5, warmup=1)(
+        lambda *ws: [w.to(torch.bfloat16) for w in ws], tuple(mats))
+    print(f"  f32 -> bf16 weight casts per forward or decode step: "
+          f"{len(mats)} weight tensors ({len(per_layer)} stacked over the "
+          f"layers, cast a layer's slice at a time), {cast_bytes / 1e6:.1f} "
+          f"MB read and written, at least "
+          f"{cast_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at the HBM rate; "
+          f"casting them whole measures {cast_s * 1e3:.3f} ms")
+
+    def prompts_of(batch):
+        return bundle.make_batch(SEED, ShapeSpec("serve", SERVE_PROMPT,
+                                                 batch, "decode"),
+                                 train=False)["tokens"]
+
+    def report(label, batch, res):
+        steps = SERVE_GEN - 1
+        mix = " ".join(f"{k}={v}" for k, v in sorted(res.dispatch.items())) \
+            if res.dispatch is not None else "none"
+        print(f"  {label}: prefill {res.prefill_s*1e3:.2f} ms; decode "
+              f"{res.decode_s*1e3/steps:.3f} ms per step; "
+              f"{batch*steps/res.decode_s:.1f} tokens/s; dispatch {mix}")
+
+    def expect(res, mix, label):
+        if res.dispatch != mix:
+            raise RuntimeError(f"{label}: dispatch {res.dispatch}, want {mix}")
+
+    def serve_loop(batch, launch_needed):
+        """Cold round, one tune_once cycle, tuned round, two rounds with
+        build_kernels (the second must build nothing)."""
+        ops = decode_ops(cfg, batch)
+        total = sum(count for count, _ in ops)
+        demand = {}
+        for count, wl in ops:
+            demand[wl.key()] = demand.get(wl.key(), 0) + count
+        prompts = prompts_of(batch)
+        # warm-up (cuBLAS handles, the allocator) on a dispatch-less server
+        Server(bundle, params, max_len=max_len).generate(prompts, 2)
+        db, log = TuningDatabase(), TrafficLog()
+        server = Server(bundle, params, max_len=max_len, hw=H100,
+                        serve_ops=ops, traffic=log, database=db)
+        kernels.reset_launch_counts()
+        res0 = server.generate(prompts, SERVE_GEN)
+        report(f"batch {batch} round 0 (cold)", batch, res0)
+        expect(res0, {"fixed": total}, f"batch {batch} round 0")
+        logged = {e.workload.key(): e.hits for e in log.hottest()}
+        print(f"    traffic log: {logged}")
+        if logged != demand:
+            raise RuntimeError(f"batch {batch}: the log holds {logged}, "
+                               f"want {demand}")
+        tuner = ContinuousTuner(log, H100, runner=runner, database=db,
+                                trials_per_shape=SERVE_TRIALS,
+                                max_shapes_per_cycle=len(ops), seed=SEED)
+        result = tuner.tune_once()
+        print(f"    tuner: {tuner.cycles} cycle(s), {tuner.shapes_tuned} "
+              f"shapes, {result.total_trials} trials on {runner.name}, "
+              f"wall {result.wall_time_s:.2f} s, overlap fraction "
+              f"{result.overlap_fraction:.4f}")
+        for rep in result.reports:
+            params_t = db.best(rep.workload, H100.name)
+            print(f"    x{rep.count} {rep.workload.key()}: tuned "
+                  f"{rep.best_latency*1e6:.2f} us, fixed library "
+                  f"{rep.fixed_latency*1e6:.2f} us, {rep.trials} trials, "
+                  f"{params_t[0].as_dict()}")
+        print(f"    sum of count x latency: tuned "
+              f"{result.tuned_latency*1e6:.2f} us, fixed library "
+              f"{result.fixed_latency*1e6:.2f} us")
+        res1 = server.generate(prompts, SERVE_GEN)
+        report(f"batch {batch} round 1 (tuned)", batch, res1)
+        expect(res1, {"tuned": total}, f"batch {batch} round 1")
+        server.build_kernels = True
+        before = build_cache_stats()
+        res2 = server.generate(prompts, SERVE_GEN)
+        mid = build_cache_stats()
+        res3 = server.generate(prompts, SERVE_GEN)
+        after = build_cache_stats()
+        launches = kernels.launch_counts()
+        new_builds = after["misses"] - mid["misses"]
+        print(f"    build_kernels rounds: {mid['misses'] - before['misses']}"
+              f" build(s) in round 2 ({mid['hits'] - before['hits']} hits), "
+              f"{new_builds} in round 3 ({after['hits'] - mid['hits']} "
+              f"hits)")
+        for rnd, res in ((2, res2), (3, res3)):
+            expect(res, {"tuned": total}, f"batch {batch} round {rnd}")
+        if new_builds:
+            raise RuntimeError(f"batch {batch}: the steady state built "
+                               f"{new_builds} kernels")
+        print(f"    launches: {launches}")
+        for name in launch_needed:
+            if launches[name] == 0:
+                raise RuntimeError(f"{name} was not launched on the batch "
+                                   f"{batch} serving path")
+        # each tuned schedule's output on the card against its plain version
+        # on host copies (after the counts are read: these launches are not
+        # the path's)
+        for rep in result.reports:
+            wl = rep.workload
+            params_t, provenance = kernel_params(wl, H100, database=db)
+            if provenance != "tuned":
+                raise RuntimeError(f"{wl.key()}: dispatch resolved "
+                                   f"{provenance}")
+            inputs = runner.inputs(wl)
+            got = kernels.build(wl, params_t)(*inputs)
+            want = kernels.build(wl, params_t, device="cpu")(
+                *(t.cpu() for t in inputs))
+            entry = "" if params_t.accumulate else " noacc"
+            close(got.cpu(), want, 5e-2, 5e-2,
+                  f"    tuned x{rep.count} {wl.key()} {params_t.block}{entry}"
+                  f" vs plain")
+        return launches
+
+    launches = {}
+    for batch, needed in ((1, ("_gemv_kernel", "_gemv_noacc_kernel")),
+                          (4, ("_acc_kernel",))):
+        for name, n in serve_loop(batch, needed).items():
+            launches[name] = launches.get(name, 0) + n
+
+    # one bf16 decode step at batch 1 under torch.profiler: the card's
+    # operations, their summed time, and the step's wall time unprofiled
+    prompts = prompts_of(1)
+    logits, cache = bundle.prefill_fn(params, {"tokens": prompts}, max_len)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    bundle.decode_fn(params, cache, tok, SERVE_PROMPT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bundle.decode_fn(params, cache, tok, SERVE_PROMPT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        bundle.decode_fn(params, cache, tok, SERVE_PROMPT)
+        torch.cuda.synchronize()
+    ops_on_card = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time for e in ops_on_card) / 1e6
+    print(f"  one batch-1 decode step: {len(ops_on_card)} operations on the "
+          f"card, {busy * 1e3:.3f} ms of device time in a {wall * 1e3:.3f} ms"
+          f" step (unprofiled): the card idles {1 - busy / wall:.1%} of it")
+
+    # the background tuner, as launch/serve.py drives it: start, generate,
+    # wait_idle, generate, stop (fresh database, warm build cache)
+    ops = decode_ops(cfg, 1)
+    total = sum(count for count, _ in ops)
+    db, log = TuningDatabase(), TrafficLog()
+    server = Server(bundle, params, max_len=max_len, hw=H100,
+                    serve_ops=ops, traffic=log, database=db)
+    tuner = ContinuousTuner(log, H100, runner=runner, database=db,
+                            trials_per_shape=SERVE_TRIALS,
+                            max_shapes_per_cycle=len(ops), seed=SEED,
+                            poll_interval_s=0.05).start()
+    kernels.reset_launch_counts()
+    try:
+        res_a = server.generate(prompts_of(1), SERVE_GEN)
+        report("background round 0", 1, res_a)
+        expect(res_a, {"fixed": total}, "background round 0")
+        if not tuner.wait_idle(timeout=300.0):
+            raise RuntimeError("the background tuner did not finish")
+        res_b = server.generate(prompts_of(1), SERVE_GEN)
+        report("background round 1", 1, res_b)
+        expect(res_b, {"tuned": total}, "background round 1")
+    finally:
+        tuner.stop()
+    for name, n in kernels.launch_counts().items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"    background tuner: {tuner.cycles} cycle(s), "
+          f"{tuner.shapes_tuned} shapes")
+
+    # (a) f32, TF32 off: greedy decode equals the argmax of the full forward
+    # wherever the forward's top-1/top-2 margin exceeds 1e-3
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    bundle32 = build(cfg32, remat="none")
+    prompts4 = prompts_of(4)
+    out = Server(bundle32, params, max_len=max_len).generate(prompts4,
+                                                             SERVE_GEN)
+    with torch.no_grad():
+        full = bundle32.forward(params, {"tokens": out.tokens[:, :-1]})
+    top2 = full[:, SERVE_PROMPT - 1:].float().topk(2, dim=-1)
+    margin = (top2.values[..., 0] - top2.values[..., 1]).cpu().numpy()
+    greedy = top2.indices[..., 0].cpu().numpy()
+    gen = out.tokens[:, SERVE_PROMPT:]
+    sure = margin > 1e-3
+    wrong = int(((gen != greedy) & sure).sum())
+    print(f"  (a) f32 greedy decode vs the forward's argmax: {int(sure.sum())}"
+          f" of {gen.size} tokens have a top-1/top-2 margin above 1e-3, "
+          f"{wrong} of them differ; {int((gen != greedy).sum())} differ in "
+          f"all (least margin {margin.min():.3g})")
+    if wrong:
+        raise RuntimeError("f32 greedy decode disagrees with the forward")
+
+    # (b) the card against the CPU: f32 prefill logits and the first 8 decode
+    # steps' logits, on the same tokens
+    bundle_cpu = build(cfg32, remat="none", device="cpu")
+    params_cpu = bundle_cpu.init(torch.Generator().manual_seed(SEED))
+    params_cpu.load_state_dict(params.state_dict())
+    tokens = out.tokens[:1]
+    prompt = {"tokens": tokens[:, :SERVE_PROMPT]}
+    got, cache = bundle32.prefill_fn(params, prompt, max_len)
+    want, cache_cpu = bundle_cpu.prefill_fn(params_cpu, prompt, max_len)
+    close(got.cpu(), want, 1e-3, 1e-3, "(b) f32 prefill logits, card vs CPU")
+    worst = 0.0
+    for i in range(8):
+        pos = SERVE_PROMPT + i
+        tok = tokens[:, pos:pos + 1]
+        got, cache = bundle32.decode_fn(params, cache, tok, pos)
+        want, cache_cpu = bundle_cpu.decode_fn(params_cpu, cache_cpu, tok, pos)
+        worst = max(worst, close(got.cpu(), want, 1e-3, 1e-3,
+                                 f"(b) f32 decode step {i} logits, card vs "
+                                 f"CPU"))
+
+    # the launcher, in its own process at its reduced default
+    db_path = os.path.join(ROOT, "build", "serve_smoke_db.json")
+    if os.path.exists(db_path):
+        os.remove(db_path)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")]
+        + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve",
+           "--continuous-tune", "--rounds", "2", "--tune-db", db_path]
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=400)
+    print(f"  launcher ({' '.join(cmd[1:])}): exit code {proc.returncode}")
+    for line in proc.stdout.splitlines():
+        print("    " + line)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise RuntimeError("the serving launcher failed")
+    return launches
 
 
 def main() -> int:
@@ -1266,6 +1567,16 @@ def main() -> int:
           + ", ".join(f"{v} {t*1e6:.1f}" for v, t in ladder.items()))
     print("  (_fa_kernel bounds count the operations of the visible "
           "(query, key) pairs only)")
+
+    # ---------------------------------------------------------------- 6 ----
+    phase(f"6. serving path: MobileLLM-125M unreduced through Server, "
+          f"dispatch miss recording and ContinuousTuner on CudaRunner "
+          f"(batch 1 and 4, {SERVE_TRIALS} trials a shape, seed {SEED})")
+    launches6 = serving_phase(runner, card_line, close)
+    print(f"launches on the serving path: {launches6}")
+    for r in rows:
+        r["launches"] += launches6.get(r["name"], 0)
+
     print("rows " + json.dumps(rows))
     print(card_line)
     strip = ("workload", "block", "bound_3xtf32_ms", "sdpa_backend")

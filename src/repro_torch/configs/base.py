@@ -4,8 +4,6 @@
 Every architecture is a frozen :class:`ArchConfig`; input shapes are
 :class:`ShapeSpec` entries. ``reduced()`` derives the CPU smoke-test
 configuration of the same family (small widths/depths, same code paths).
-The port carries only the configurations a ported path uses
-(:data:`EXTRA_IDS`); the JAX package's model pool is not ported.
 """
 
 from __future__ import annotations
@@ -187,13 +185,16 @@ SHAPES: dict[str, ShapeSpec] = {
     "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
 }
 
-# The JAX package's model pool (its ARCH_IDS) runs through its models, which
-# are not ported; the port has none of them.
-ARCH_IDS: tuple[str, ...] = ()
+# The model pool. The port's model zoo builds the dense and vlm families;
+# the others are configurations only until their models are ported.
+ARCH_IDS = (
+    "granite_3_2b", "gemma3_1b", "yi_6b", "h2o_danube_1_8b",
+    "recurrentgemma_2b", "whisper_tiny", "qwen2_vl_7b", "qwen2_moe_a2_7b",
+    "moonshot_v1_16b_a3b", "mamba2_780m",
+)
 
-# The paper's own evaluation networks that a ported path uses:
-# MobileLLM-125M's decode step (runtime.serve_loop.decode_ops).
-EXTRA_IDS = ("mobilellm_125m",)
+# Paper's own evaluation networks, also exposed as configs.
+EXTRA_IDS = ("bert_tiny", "mobilellm_125m")
 
 
 def get_config(arch_id: str) -> ArchConfig:

@@ -4,7 +4,8 @@ PyTorch and CUDA.
 Public API:
     Workload, Schedule, HardwareConfig / H100, tune(), TuningDatabase,
     CudaRunner / EmulateRunner / AnalyticRunner, MeasureScheduler,
-    TuningSession, best_schedule() / kernel_params() / ensure_tuned().
+    TuningSession, TrafficLog / ContinuousTuner, best_schedule() /
+    kernel_params() / ensure_tuned().
 """
 
 from repro_torch.core.hardware import (CPU_EMULATE, H100, INTERPRET, SWEEP,
@@ -44,6 +45,9 @@ from repro_torch.core.session import (BudgetLedger, EntropyStopPolicy,
                                       TuningSession, SessionResult,
                                       WorkloadReport, dedup_workloads,
                                       split_budget)
+from repro_torch.core.traffic import (ContinuousTuner, TrafficEntry,
+                                      TrafficLog, installed_log,
+                                      set_traffic_log)
 from repro_torch.core.dispatch import (best_schedule, ensure_tuned,
                                        fixed_library_schedule,
                                        invalidate_dispatch_caches,
@@ -65,7 +69,9 @@ __all__ = [
     "TuningDatabase", "default_db_path", "global_database",
     "reset_global_database", "tune", "TuneDriver", "TuneResult",
     "BudgetLedger", "EntropyStopPolicy", "TuningSession", "SessionResult",
-    "WorkloadReport", "dedup_workloads", "split_budget", "best_schedule",
+    "WorkloadReport", "dedup_workloads", "split_budget",
+    "ContinuousTuner", "TrafficEntry", "TrafficLog", "installed_log",
+    "set_traffic_log", "best_schedule",
     "ensure_tuned", "fixed_library_schedule", "invalidate_dispatch_caches",
     "kernel_params",
 ]

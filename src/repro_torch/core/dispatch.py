@@ -18,9 +18,18 @@ The hardware defaults to :data:`~repro_torch.core.hardware.H100`.
 :func:`ensure_tuned` pre-tunes a whole model config (a network of
 :mod:`repro_torch.nets`, or ``runtime.serve_loop.decode_ops``) through a
 :class:`~repro_torch.core.session.TuningSession`, so that every op resolves
-``"tuned"``. The JAX package also records every miss into a traffic log for
-continuous tuning; that layer is not ported yet, so resolving has no
-tuning-side effects.
+``"tuned"``.
+
+Dispatch is also the sensor of the serving↔tuning loop
+(``core/traffic.py``): every resolution that does *not* hit rung 1 is a
+cache miss or near miss, and its workload shape is recorded into a
+:class:`~repro_torch.core.traffic.TrafficLog` (the explicit ``traffic=``
+argument, else the process-wide log installed via
+:func:`~repro_torch.core.traffic.set_traffic_log`). A
+:class:`~repro_torch.core.traffic.ContinuousTuner` drains that log and
+ships new records into the database, which ``global_database()`` hot-swaps
+into running servers by mtime. With no log installed (the default)
+recording is off and dispatch has zero tuning-side effects.
 
 Every rung is memoized per ``(workload.key(), hw.name)``: tuned and
 bucketed lookups through the caches on :class:`TuningDatabase` (invalidated
@@ -35,8 +44,9 @@ concretizes through the memoized ``space.concretize`` and any
 from __future__ import annotations
 
 from repro_torch.core import space as space_lib
+from repro_torch.core import traffic as traffic_lib
 from repro_torch.core.database import TuningDatabase, global_database
-from repro_torch.core.hardware import H100, CudaHardwareConfig, HardwareConfig
+from repro_torch.core.hardware import H100, HardwareConfig
 from repro_torch.core.schedule import Schedule
 from repro_torch.core.workload import Workload
 
@@ -116,14 +126,26 @@ def invalidate_dispatch_caches() -> None:
     _FIXED_CACHE.clear()
 
 
+def _record_miss(traffic, workload: Workload, hw: HardwareConfig,
+                 provenance: str, count: int) -> None:
+    log = traffic if traffic is not None else traffic_lib.installed_log()
+    if log is not None:
+        log.record(workload, hw.name, provenance, count=count)
+
+
 def best_schedule(workload: Workload, hw: HardwareConfig = H100,
                   database: TuningDatabase | None = None,
-                  allow_fixed: bool = True, allow_bucketed: bool = True
-                  ) -> tuple[Schedule | None, str]:
+                  allow_fixed: bool = True, allow_bucketed: bool = True,
+                  traffic=None, count: int = 1) -> tuple[Schedule | None,
+                                                         str]:
     """Resolve (schedule, provenance) for an op instance.
 
     ``provenance`` is one of ``"tuned"`` / ``"bucketed"`` / ``"fixed"`` /
-    ``"xla"`` — the rung that resolved (module docstring)."""
+    ``"xla"`` — the rung that resolved (module docstring). Every
+    non-``"tuned"`` resolution is recorded as a miss into ``traffic`` (or
+    the process-wide installed log; neither present = recording off);
+    ``count`` is the op's multiplicity in the caller's step (e.g. layer
+    count), so the traffic log's hit counters reflect real demand."""
     db = database if database is not None else global_database()
     rec = db.best(workload, hw.name)
     if rec is not None:
@@ -131,18 +153,25 @@ def best_schedule(workload: Workload, hw: HardwareConfig = H100,
     if allow_bucketed:
         bucket = db.nearest_tuned(workload, hw)
         if bucket is not None:
+            # a near miss: served from the neighbouring bucket, but still
+            # worth tuning exactly — record it so the tuner closes the gap
+            _record_miss(traffic, workload, hw, "bucketed", count)
             return bucket[0], "bucketed"
     if allow_fixed:
+        _record_miss(traffic, workload, hw, "fixed", count)
         return fixed_library_schedule(workload, hw), "fixed"
+    _record_miss(traffic, workload, hw, "xla", count)
     return None, "xla"
 
 
 def kernel_params(workload: Workload, hw: HardwareConfig = H100,
                   database: TuningDatabase | None = None,
-                  allow_fixed: bool = True, allow_bucketed: bool = True):
+                  allow_fixed: bool = True, allow_bucketed: bool = True,
+                  traffic=None, count: int = 1):
     sched, provenance = best_schedule(workload, hw, database,
                                       allow_fixed=allow_fixed,
-                                      allow_bucketed=allow_bucketed)
+                                      allow_bucketed=allow_bucketed,
+                                      traffic=traffic, count=count)
     if sched is None:
         return None, provenance
     return space_lib.concretize(workload, hw, sched), provenance
@@ -169,7 +198,7 @@ def ensure_tuned(ops, hw: HardwareConfig = H100,
     Returns the :class:`SessionResult`, or ``None`` if the database already
     covers every workload.
     """
-    from repro_torch.core.runner import AnalyticRunner, CudaRunner
+    from repro_torch.core.runner import default_runner
     from repro_torch.core.session import TuningSession, dedup_workloads
 
     db = database if database is not None else global_database()
@@ -178,8 +207,7 @@ def ensure_tuned(ops, hw: HardwareConfig = H100,
     if not missing:
         return None
     if runner is None:
-        runner = (CudaRunner(hw) if isinstance(hw, CudaHardwareConfig)
-                  else AnalyticRunner(hw))
+        runner = default_runner(hw)
     session = TuningSession(hw, runner, database=db, log=log)
     return session.tune_model(missing,
                               total_trials=trials_per_workload * len(missing),

@@ -134,7 +134,16 @@ class CudaRunner:
     runs (illegal address and the like) raises: the CUDA context is then
     unusable, and marking the candidate invalid would silently mark every
     later candidate invalid too. No CPU fallback: constructing the runner
-    without a card raises."""
+    without a card raises.
+
+    Candidates are built, run and timed on the runner's own CUDA stream, on
+    the card that was current when it was made, whichever thread calls: a
+    background tuner can then measure beside a server decoding on the
+    default stream, its work kept in order and apart from the server's
+    thread. The stream does not isolate the timing: kernels the server
+    issues meanwhile share the card's SMs, L2 and HBM and can run inside a
+    timed window, and ``CardTimer``'s synchronize waits for the whole card.
+    Latencies measured while a server decodes are measured under load."""
 
     hw: HardwareConfig
     repeats: int = 10
@@ -150,8 +159,12 @@ class CudaRunner:
 
         if not isinstance(self.hw, CudaHardwareConfig):
             raise ValueError(f"{self.hw.name} is not a CUDA configuration")
+        import torch
+
         self._timer = CardTimer(self.repeats, self.warmup)
         check_device(self.hw)
+        self._device = torch.cuda.current_device()
+        self._stream = torch.cuda.Stream(self._device)
         self._inputs: dict[str, tuple] = {}
 
     def inputs(self, workload: Workload) -> tuple:
@@ -185,10 +198,13 @@ class CudaRunner:
         return fn
 
     def run(self, workload: Workload, schedule: Schedule) -> float:
-        fn = self._prepare(workload, schedule)
-        if fn is None:
-            return INVALID
-        return self._timer(fn, self.inputs(workload))
+        import torch
+
+        with torch.cuda.device(self._device), torch.cuda.stream(self._stream):
+            fn = self._prepare(workload, schedule)
+            if fn is None:
+                return INVALID
+            return self._timer(fn, self.inputs(workload))
 
     def run_batch(self, workload: Workload,
                   schedules: Sequence[Schedule]) -> list[float]:
@@ -292,6 +308,18 @@ class AnalyticRunner:
         t_overhead = steps * hw.grid_step_overhead_s
         # DMA/compute overlap: roofline max, plus fixed per-step cost.
         return max(t_compute, t_memory) + t_overhead
+
+
+def default_runner(hw: HardwareConfig):
+    """The runner that measures where ``hw`` says the kernels run:
+    :class:`CudaRunner` on the card for a CUDA configuration (raising
+    without one; no CPU fallback), the analytic model for a TPU one, as in
+    the JAX package."""
+    from repro_torch.core.hardware import CudaHardwareConfig
+
+    if isinstance(hw, CudaHardwareConfig):
+        return CudaRunner(hw)
+    return AnalyticRunner(hw)
 
 
 def baseline_latency(workload: Workload, device: str = "cuda",

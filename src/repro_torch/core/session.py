@@ -51,9 +51,14 @@ the database. A :class:`TuningSession` does that for a model config
   records real busy/wait intervals. Fixed-library baselines are measured
   as one scheduled wave — every workload's baseline in flight together.
 
-The JAX package's board farm (``board_stats``, ``preemptions``) and
-traffic-driven continuous tuning are not ported; the summary keeps their
-keys (``None`` / 0) so that session records read alike in both packages.
+Sessions are also the engine of **traffic-driven continuous tuning**
+(``core/traffic.py``): a :class:`~repro_torch.core.traffic.ContinuousTuner`
+hands each cycle's traffic-log entries to :meth:`TuningSession.tune_model`
+with their hit counts as multiplicities.
+
+The JAX package's board farm (``board_stats``, ``preemptions``) is not
+ported; the summary keeps its keys (``None`` / 0) so that session records
+read alike in both packages.
 """
 
 from __future__ import annotations

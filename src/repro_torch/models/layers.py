@@ -1,0 +1,367 @@
+"""Shared model building blocks (the JAX package's ``models/layers.py``,
+ported to plain functions on tensors).
+
+Parameters are f32 ("master" precision); compute casts to the config dtype
+(bf16 by default) at every projection, as the reference does. The model's
+projections are ``@`` and its attention the chunked online softmax of
+:func:`_sdpa`, in plain PyTorch: the port's tuned CUDA kernels are reached
+through dispatch and tuning (``core/dispatch.py``), not from inside the
+model, as in the reference.
+
+Per-layer parameters arrive here as dicts of tensors (``p["wq"]`` ...),
+one layer's slice of the stacked ``(L, ...)`` parameters of
+:mod:`repro_torch.models.transformer`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+
+# --------------------------------------------------------------------- init --
+
+
+def _dense_init(shape, generator: torch.Generator, scale=None):
+    """f32 normal of ``shape`` scaled by ``1/sqrt(fan_in)`` (``shape[-2]``:
+    the stacked layer dim, where present, leads), drawn from
+    ``generator`` on its device."""
+    fan_in = shape[-2] if len(shape) > 1 else shape[0]
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=generator.device) * scale
+
+
+# --------------------------------------------------------------------- norms --
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps) * scale.float()
+    return out.to(dtype)
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    out = out * scale.float() + bias.float()
+    return out.to(dtype)
+
+
+# ---------------------------------------------------------------------- rope --
+
+def _rope_freqs(head_dim: int, theta: float):
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+def _rotate(x, angles):
+    """Rotate the two halves of ``x``'s last dim by ``angles`` (..., S,
+    D/2), broadcast over the head dim, in f32."""
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float):
+    """x (..., S, H, D); positions (..., S) integer."""
+    d = x.shape[-1]
+    freqs = torch.as_tensor(_rope_freqs(d, theta), dtype=torch.float32,
+                            device=x.device)  # (D/2,)
+    angles = positions[..., None].float() * freqs  # (..., S, D/2)
+    return _rotate(x, angles)
+
+
+def apply_mrope(x, positions, theta: float, sections: tuple[int, ...]):
+    """Multimodal RoPE (Qwen2-VL): ``positions`` is (B, 3, S) — one position
+    stream per (temporal, height, width) — and the head_dim/2 frequency
+    bands are split into ``sections`` consuming their own stream."""
+    d = x.shape[-1]
+    freqs = torch.as_tensor(_rope_freqs(d, theta), dtype=torch.float32,
+                            device=x.device)  # (D/2,)
+    # section id per frequency band
+    sec_id = np.zeros(d // 2, np.int64)
+    start = 0
+    for i, s in enumerate(sections):
+        sec_id[start:start + s] = i
+        start += s
+    sec_id = torch.as_tensor(sec_id, device=x.device)
+    pos = positions.float().index_select(1, sec_id)  # (B, D/2, S)
+    angles = pos.movedim(1, -1) * freqs  # (B, S, D/2)
+    return _rotate(x, angles)
+
+
+# ----------------------------------------------------------------- attention --
+
+def init_attention(cfg: ArchConfig, generator: torch.Generator,
+                   stack: tuple[int, ...] = ()):
+    d = cfg.d_model
+    return {
+        "wq": _dense_init((*stack, d, cfg.q_dim), generator),
+        "wk": _dense_init((*stack, d, cfg.kv_dim), generator),
+        "wv": _dense_init((*stack, d, cfg.kv_dim), generator),
+        "wo": _dense_init((*stack, cfg.q_dim, d), generator),
+    }
+
+
+def _qkv(x, p, cfg: ArchConfig):
+    b, s, _ = x.shape
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = (x @ p["wk"].to(x.dtype)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (x @ p["wv"].to(x.dtype)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+# Chunked online-softmax attention: the same KV-blocking the flash kernel
+# implements, a loop over key chunks that never materializes (S, T) scores.
+ATTN_CHUNK = 1024
+_COL_SENTINEL = 2**30  # padded key slots: fails both validity and causality
+
+
+def _sdpa(q, k, v, rows, cols, window: int = -1, causal: bool = True):
+    """q (B,S,Hq,D); k/v (B,T,Hkv,D); rows (S,)/cols (T,) global positions.
+
+    ``window``: negative = unlimited; else sliding window.
+    Returns (B, S, Hq*D) in q.dtype. Scores and the running state are f32;
+    the probabilities are cast to v's dtype before the PV product, as the
+    reference's ``preferred_element_type=f32`` einsums do.
+    """
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    if group > 1:  # jnp.repeat's order: query head h reads KV head h // group
+        k = k.repeat_interleave(group, dim=2)
+        v = v.repeat_interleave(group, dim=2)
+    scale = 1.0 / math.sqrt(d)
+    c = min(ATTN_CHUNK, t)
+    pad = (-t) % c
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        cols = torch.cat([cols, torch.full((pad,), _COL_SENTINEL,
+                                           dtype=cols.dtype,
+                                           device=cols.device)])
+    rows_b = rows[None, None, :, None]  # (1,1,S,1)
+    qf = q.float()
+    m = torch.full((b, hq, s, 1), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hq, s, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hq, s, d), dtype=torch.float32, device=q.device)
+    for start in range(0, t + pad, c):
+        kk, vv = k[:, start:start + c], v[:, start:start + c]
+        cc_b = cols[start:start + c][None, None, None, :]
+        sc = torch.einsum("bshd,bchd->bhsc", qf, kk.float()) * scale
+        pred = cc_b < _COL_SENTINEL
+        if causal:
+            pred = pred & (cc_b <= rows_b)
+            if window >= 0:
+                pred = pred & (rows_b - cc_b < window)
+        sc = torch.where(pred, sc, -1e30)
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        p = torch.exp(sc - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bhsc,bchd->bhsd", p.to(vv.dtype).float(), vv.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-20)
+    return out.transpose(1, 2).reshape(b, s, hq * d).to(q.dtype)
+
+
+def causal_window_mask(s: int, t: int, window: int, offset: int = 0,
+                       device=None):
+    """(1, s, t) boolean mask (kept for tests/reference paths)."""
+    rows = torch.arange(s, device=device)[:, None] + offset
+    cols = torch.arange(t, device=device)[None, :]
+    mask = cols <= rows
+    win_ok = (rows - cols < window) | (window < 0)
+    return (mask & win_ok)[None]
+
+
+def attention(x, p, cfg: ArchConfig, positions, window: int = -1,
+              mrope_positions=None):
+    """Full-sequence (train/prefill) attention. Returns (out, (k, v))."""
+    q, k, v = _qkv(x, p, cfg)
+    if cfg.mrope_sections and mrope_positions is not None:
+        q = apply_mrope(q, mrope_positions, cfg.rope_theta,
+                        cfg.mrope_sections)
+        k = apply_mrope(k, mrope_positions, cfg.rope_theta,
+                        cfg.mrope_sections)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    s = x.shape[1]
+    idx = torch.arange(s, dtype=torch.int32, device=x.device)
+    out = _sdpa(q, k, v, rows=idx, cols=idx, window=window, causal=True)
+    return out @ p["wo"].to(x.dtype), (k, v)
+
+
+# When enabled (perf knob), decode with a *static* sliding window reads only
+# the last `window` cache positions instead of scanning the full cache and
+# masking — an O(T/window) memory-traffic reduction for windowed-attention
+# archs at long context.
+DECODE_WINDOW_SLICING = False
+
+# Ring-buffer KV caches (perf knob): for uniform static-window archs the
+# cache is ALLOCATED at window size and written at pos % window — O(window)
+# memory and traffic regardless of context length.
+RING_KV = False
+
+
+def set_decode_window_slicing(enabled: bool):
+    global DECODE_WINDOW_SLICING
+    DECODE_WINDOW_SLICING = enabled
+
+
+def set_ring_kv(enabled: bool):
+    global RING_KV
+    RING_KV = enabled
+
+
+def ring_cache_len(cfg, max_len: int) -> int:
+    """Allocation length for a KV cache: the static window when the ring
+    knob is on and every layer shares one positive window."""
+    if (RING_KV and cfg.window_pattern and cfg.window_pattern[0] > 0
+            and all(w == cfg.window_pattern[0] for w in cfg.window_pattern)):
+        return min(max_len, cfg.window_pattern[0])
+    return max_len
+
+
+def ring_positions(pos: int, t: int, device=None):
+    """Absolute position stored in each ring slot (negative = unwritten)."""
+    idx = torch.arange(t, dtype=torch.int32, device=device)
+    return pos - torch.remainder(pos - idx, t)
+
+
+def ring_store(k, cfg, max_len: int):
+    """Lay prefill keys (B, S, H, D) out into the (possibly ring) cache
+    (B, T_alloc, H, D): pad when it fits, else keep the last T_alloc
+    positions at slots ``abs_pos % T_alloc``."""
+    b, s, h, d = k.shape
+    t_alloc = ring_cache_len(cfg, max_len)
+    if t_alloc >= s:
+        return F.pad(k, (0, 0, 0, 0, 0, t_alloc - s))
+    tail = k[:, s - t_alloc:]
+    slots = torch.as_tensor(np.arange(s - t_alloc, s) % t_alloc,
+                            device=k.device)  # static permutation
+    out = torch.zeros((b, t_alloc, h, d), dtype=k.dtype, device=k.device)
+    out[:, slots] = tail
+    return out
+
+
+def attention_decode(x, p, cfg: ArchConfig, k_cache, v_cache, pos: int,
+                     window: int = -1, mrope_positions=None,
+                     static_window: int | None = None, ring: bool = False):
+    """Single-token decode. x (B,1,D); caches (B,T,Hkv,D); pos int.
+
+    The new key and value are written into ``k_cache``/``v_cache`` in place
+    (views into the stacked cache, so no copy of it is made).
+    ``ring``: the cache is a ring buffer of length T (= the static window);
+    writes land at ``pos % T`` and key positions are reconstructed per slot.
+
+    Returns (out, k_cache, v_cache)."""
+    b, s, _ = x.shape
+    pos = int(pos)
+    q, k, v = _qkv(x, p, cfg)
+    positions = torch.full((b, s), pos, dtype=torch.int32, device=x.device)
+    if cfg.mrope_sections and mrope_positions is not None:
+        q = apply_mrope(q, mrope_positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, mrope_positions, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    t = k_cache.shape[1]
+    # dynamic_update_slice's clamp: the write stays inside the cache
+    write_pos = min(pos % t if ring else pos, t - s)
+    k_cache[:, write_pos:write_pos + s] = k.to(k_cache.dtype)
+    v_cache[:, write_pos:write_pos + s] = v.to(v_cache.dtype)
+    rows = torch.full((s,), pos, dtype=torch.int32, device=x.device)
+    k_use, v_use = k_cache, v_cache
+    if ring:
+        cols = ring_positions(pos, t, device=x.device)
+        cols = torch.where(cols >= 0, cols, _COL_SENTINEL)
+    elif (DECODE_WINDOW_SLICING and static_window is not None
+            and 0 < static_window < t):
+        w = static_window
+        start = min(max(pos - w + 1, 0), t - w)
+        k_use, v_use = k_cache[:, start:start + w], v_cache[:, start:start + w]
+        cols = start + torch.arange(w, dtype=torch.int32, device=x.device)
+    else:
+        cols = torch.arange(t, dtype=torch.int32, device=x.device)
+    out = _sdpa(q, k_use.to(x.dtype), v_use.to(x.dtype), rows=rows,
+                cols=cols, window=window, causal=True)
+    return out @ p["wo"].to(x.dtype), k_cache, v_cache
+
+
+# ---------------------------------------------------------------------- mlp --
+
+def init_mlp(d: int, f: int, act: str, generator: torch.Generator,
+             stack: tuple[int, ...] = ()):
+    p = {"w_up": _dense_init((*stack, d, f), generator),
+         "w_down": _dense_init((*stack, f, d), generator)}
+    if act == "silu":  # gated (SwiGLU)
+        p["w_gate"] = _dense_init((*stack, d, f), generator)
+    return p
+
+
+def mlp(x, p, act: str):
+    up = x @ p["w_up"].to(x.dtype)
+    if act == "silu":
+        gate = F.silu(x @ p["w_gate"].to(x.dtype))
+        h = gate * up
+    else:
+        h = F.gelu(up, approximate="tanh")  # jax.nn.gelu's default
+    return h @ p["w_down"].to(x.dtype)
+
+
+# ------------------------------------------------------------------ embedding --
+
+def init_embedding(cfg: ArchConfig, generator: torch.Generator):
+    # vocab padded to 128; padded logits are masked in unembed so the extra
+    # rows are inert.
+    p = {"embedding": _dense_init((cfg.padded_vocab, cfg.d_model), generator,
+                                  scale=1.0 / math.sqrt(cfg.d_model))}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = _dense_init((cfg.d_model, cfg.padded_vocab), generator)
+    return p
+
+
+def embed(tokens, p, cfg: ArchConfig, dtype):
+    x = F.embedding(tokens.long(), p["embedding"]).to(dtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
+    return x
+
+
+def unembed(x, p, cfg: ArchConfig):
+    if cfg.tie_embeddings:
+        w = p["embedding"].T
+    else:
+        w = p["lm_head"]
+    logits = x @ w.to(x.dtype)
+    if cfg.padded_vocab != cfg.vocab_size:
+        valid = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
+        logits = logits.masked_fill(~valid, -1e30)
+    return logits
+
+
+# --------------------------------------------------------------------- loss --
+
+def lm_loss(logits, labels, mask=None):
+    """Mean cross-entropy in f32. logits (B,S,V); labels (B,S) integer."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

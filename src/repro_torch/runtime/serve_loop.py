@@ -1,15 +1,40 @@
-"""The serving loop's per-decode-step op list (the JAX package's
-``runtime/serve_loop.py``, in part).
+"""Batched serving loop: prefill + decode with a static KV budget (the JAX
+package's ``runtime/serve_loop.py``, ported).
 
-Only :func:`decode_ops` is ported: it is what
-:func:`repro_torch.core.dispatch.ensure_tuned` pre-tunes for a decoding
-server. The JAX package's ``Server`` needs its models, which the port does
-not have yet.
+This is also where the dispatch chain meets real traffic: a Server built
+with a hardware config and a per-decode-step op list (:func:`decode_ops`)
+resolves each step's tensor workloads through
+``repro_torch.core.dispatch.best_schedule`` — tuned → bucketed → fixed →
+xla — and reports the provenance mix on every :class:`GenerationResult`.
+Misses flow into the attached :class:`~repro_torch.core.traffic.TrafficLog`,
+which a :class:`~repro_torch.core.traffic.ContinuousTuner` drains; the
+hot-swapping ``global_database()`` (or the database the server was given)
+then flips later dispatches to ``"tuned"`` without a server restart. Built
+without a hardware config (the default), the server is the plain
+pre-dispatch serving loop.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
 from repro_torch.core.workload import Workload, gemv, matmul
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    tokens: np.ndarray  # (B, prompt + n_steps) — exactly n_steps generated
+    prefill_s: float
+    decode_s: float
+    steps: int
+    # provenance -> op count of this step's dispatch resolution
+    # ("tuned"/"bucketed"/"fixed"/"xla"); None when the server was built
+    # without a dispatch layer (hw=None)
+    dispatch: dict[str, int] | None = None
 
 
 def decode_ops(cfg, batch: int) -> list[tuple[int, Workload]]:
@@ -19,8 +44,8 @@ def decode_ops(cfg, batch: int) -> list[tuple[int, Workload]]:
 
     ``batch == 1`` lowers the projections to ``gemv`` — the single-stream
     edge-decode shape the paper tunes — larger batches to skinny matmuls.
-    This is what a dispatch-aware server resolves every step, and what
-    :func:`repro_torch.core.dispatch.ensure_tuned` pre-tunes offline.
+    This is what a dispatch-aware :class:`Server` resolves every step, and
+    what :func:`repro_torch.core.dispatch.ensure_tuned` pre-tunes offline.
     """
     dtype = cfg.dtype if cfg.dtype in ("float32", "bfloat16") else "bfloat16"
 
@@ -37,3 +62,120 @@ def decode_ops(cfg, batch: int) -> list[tuple[int, Workload]]:
         (cfg.n_layers, proj(cfg.d_model, ff)),             # FFN down
         (1, proj(cfg.padded_vocab, cfg.d_model)),          # LM head
     ]
+
+
+class Server:
+    """Minimal batched server: a fixed batch of requests is prefilled once,
+    then decoded greedily step by step (one decode step reused across
+    positions, called directly; the JAX package jits it).
+
+    ``hw`` + ``serve_ops`` attach the dispatch layer: every ``generate``
+    resolves each serve op once through the four-rung chain against
+    ``database`` (default: the hot-swapping ``global_database()``) and
+    records misses into ``traffic`` — the serving side of the
+    continuous-tuning loop.
+
+    ``build_kernels=True`` additionally builds each resolved schedule's
+    CUDA kernel, on the device of the model's parameters, during the
+    dispatch pass. Builds go through the content-addressed process-wide
+    :class:`~repro_torch.core.build_cache.BuildCache`, so only the *first*
+    resolution of each distinct concrete lowering pays the build — steady
+    state (the same ops resolving to the same schedules, generate after
+    generate) performs zero builds."""
+
+    def __init__(self, bundle, params, max_len: int = 256,
+                 hw=None, serve_ops=None, traffic=None, database=None,
+                 build_kernels: bool = False):
+        self.bundle = bundle
+        self.params = params
+        self.max_len = max_len
+        self.hw = hw
+        self.serve_ops = list(serve_ops or ())
+        self.traffic = traffic
+        self.database = database
+        self.build_kernels = build_kernels
+        self.device = next(params.parameters()).device
+        # signatures of the lowerings already launched once by _build_kernel
+        self._launched: set = set()
+
+    def resolve_dispatch(self) -> dict[str, int] | None:
+        """One dispatch pass over the serve ops: provenance -> op count.
+        None when no dispatch layer is attached. Each pass re-resolves
+        through the database (hot-swap visible); per-op cost is O(1) via
+        the dispatch caches."""
+        if self.hw is None or not self.serve_ops:
+            return None
+        from repro_torch.core.dispatch import best_schedule
+
+        counts: dict[str, int] = {}
+        for count, wl in self.serve_ops:
+            sched, provenance = best_schedule(wl, self.hw,
+                                              database=self.database,
+                                              traffic=self.traffic,
+                                              count=count)
+            counts[provenance] = counts.get(provenance, 0) + count
+            if self.build_kernels and sched is not None:
+                self._build_kernel(wl, sched)
+        return counts
+
+    def _build_kernel(self, wl: Workload, sched) -> None:
+        """Build one resolved op's kernel through the process-wide build
+        cache (a repeat of an already-built signature is a cache hit, no
+        build). An "xla" resolution never reaches here (sched is None) and
+        a schedule that does not concretize valid on this shape is skipped,
+        as in the JAX package. The first time this server meets a concrete
+        lowering on the card, its kernel is launched once on the workload's
+        example inputs, so that a failing ``nvcc`` or launch raises here
+        instead of being hidden."""
+        from repro_torch import kernels
+        from repro_torch.core import space as space_lib
+        from repro_torch.core.runner import device_inputs
+
+        params = space_lib.concretize(wl, self.hw, sched)
+        if not params.valid:
+            return
+        fn = kernels.build(wl, params, device=self.device.type)
+        sig = params.signature()
+        if self.device.type == "cuda" and sig not in self._launched:
+            with torch.cuda.device(self.device):
+                fn(*device_inputs(wl, self.device))
+            self._launched.add(sig)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @torch.no_grad()
+    def generate(self, prompts: np.ndarray, n_steps: int,
+                 extra_batch: dict | None = None) -> GenerationResult:
+        dispatch = self.resolve_dispatch()
+        b, s = prompts.shape
+        batch = {"tokens": prompts}
+        if extra_batch:
+            batch.update(extra_batch)
+
+        self._sync()
+        t0 = time.perf_counter()
+        logits, cache = self.bundle.prefill_fn(self.params, batch,
+                                               self.max_len)
+        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        self._sync()
+        prefill_s = time.perf_counter() - t0
+
+        # the prefill argmax is the *first* generated token, so it counts
+        # against n_steps: n_steps=0 emits nothing (tokens == prompts) and
+        # the result always has exactly prompt + n_steps columns
+        out = [next_tok] if n_steps > 0 else []
+        t0 = time.perf_counter()
+        for i in range(n_steps - 1):
+            logits, cache = self.bundle.decode_fn(self.params, cache,
+                                                  next_tok[:, None], s + i)
+            next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            out.append(next_tok)
+        self._sync()
+        decode_s = time.perf_counter() - t0
+
+        gen = (torch.stack(out, dim=1).cpu().numpy().astype(prompts.dtype)
+               if out else np.zeros((b, 0), dtype=prompts.dtype))
+        return GenerationResult(np.concatenate([prompts, gen], axis=1),
+                                prefill_s, decode_s, n_steps, dispatch)

@@ -1025,3 +1025,148 @@ def test_build_launches_one_kernel_and_pads_nothing(cuda, wl):
     want = kernels.build(wl, params, device="cpu")(*wl.example_inputs())
     tol = 0.0 if wl.op == "qmatmul" else 1e-5
     torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
+
+
+# ------------------------------------------------------ the serving path ----
+
+@pytest.fixture(scope="module")
+def mobilellm():
+    """MobileLLM-125M unreduced (bf16 compute on f32 master weights) on the
+    card, its bundle and 64-token batch-1 prompts."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models.model_zoo import build
+
+    cfg = get_config("mobilellm_125m")
+    bundle = build(cfg, remat="none")
+    params = bundle.init(torch.Generator().manual_seed(0))
+    prompts = bundle.make_batch(0, ShapeSpec("serve", 64, 1, "decode"),
+                                train=False)["tokens"]
+    return cfg, bundle, params, prompts
+
+
+def _server(mobilellm, **kwargs):
+    from repro_torch.core import TrafficLog
+    from repro_torch.runtime.serve_loop import Server, decode_ops
+
+    cfg, bundle, params, _ = mobilellm
+    ops = decode_ops(cfg, 1)
+    kwargs.setdefault("database", TuningDatabase())
+    kwargs.setdefault("traffic", TrafficLog())
+    return Server(bundle, params, max_len=64 + 8 + 1, hw=H100,
+                  serve_ops=ops, **kwargs), ops
+
+
+def test_server_provenance_round_trip_at_full_width(cuda, mobilellm):
+    """Cold: every one of the 151 decode-step ops "fixed" and the five
+    shapes in the traffic log; one ContinuousTuner cycle on CudaRunner;
+    then every op "tuned", and the tokens unchanged (dispatch does not
+    touch the model's arithmetic)."""
+    from repro_torch.core import ContinuousTuner
+
+    prompts = mobilellm[3]
+    server, ops = _server(mobilellm)
+    cold = server.generate(prompts, 8)
+    assert cold.dispatch == {"fixed": 151}
+    assert sorted(e.hits for e in server.traffic.hottest()) == \
+        [1, 30, 30, 30, 60]
+    ContinuousTuner(server.traffic, H100, runner=CudaRunner(H100),
+                    database=server.database, trials_per_shape=4,
+                    max_shapes_per_cycle=len(ops)).tune_once()
+    warm = server.generate(prompts, 8)
+    assert warm.dispatch == {"tuned": 151}
+    assert len(server.traffic) == 0
+    np.testing.assert_array_equal(warm.tokens, cold.tokens)
+    assert warm.tokens.shape == (1, 72)
+
+
+def test_server_steady_state_builds_nothing(cuda, mobilellm):
+    from repro_torch.core import build_cache_stats
+
+    server, _ = _server(mobilellm, build_kernels=True)
+    server.generate(mobilellm[3], 2)
+    mid = build_cache_stats()
+    server.generate(mobilellm[3], 2)
+    after = build_cache_stats()
+    assert after["misses"] == mid["misses"]
+    assert after["hits"] - mid["hits"] == 5
+
+
+def test_server_build_failure_raises(cuda, mobilellm, monkeypatch, tmp_path):
+    """A kernel that fails to build on the card (here: nvcc exits nonzero
+    into an empty build directory) makes generate raise; it is not skipped
+    as the JAX package's server skips every build exception."""
+    from repro_torch.core import clear_build_cache
+
+    monkeypatch.setattr(_build, "BUILD_ROOT", str(tmp_path))
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "_nvcc", lambda: "false")
+    clear_build_cache()
+    server, _ = _server(mobilellm, build_kernels=True)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        server.generate(mobilellm[3], 2)
+    clear_build_cache()
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_serving_tuned_schedules_match_plain(cuda, batch):
+    """MobileLLM-125M's decode shapes at batch 1 (bf16 gemv) and batch 4
+    (bf16 matmul at four rows), recorded at dispatch and tuned by one
+    ContinuousTuner cycle on CudaRunner: each resolves "tuned", and its
+    kernel's output on the card equals the same schedule's plain version on
+    the CPU within 5e-2."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ContinuousTuner, TrafficLog, best_schedule
+    from repro_torch.runtime.serve_loop import decode_ops
+
+    ops = decode_ops(get_config("mobilellm_125m"), batch)
+    db, log = TuningDatabase(), TrafficLog()
+    for count, wl in ops:
+        best_schedule(wl, H100, database=db, traffic=log, count=count)
+    runner = CudaRunner(H100)
+    result = ContinuousTuner(log, H100, runner=runner, database=db,
+                             trials_per_shape=4,
+                             max_shapes_per_cycle=len(ops)).tune_once()
+    assert len(result.reports) == 5
+    for rep in result.reports:
+        wl = rep.workload
+        assert wl.op == ("gemv" if batch == 1 else "matmul")
+        params, provenance = kernel_params(wl, H100, database=db)
+        assert provenance == "tuned"
+        inputs = runner.inputs(wl)
+        got = kernels.build(wl, params)(*inputs)
+        want = kernels.build(wl, params, device="cpu")(
+            *(t.cpu() for t in inputs))
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   rtol=5e-2, atol=5e-2)
+
+
+def test_f32_logits_on_the_card_match_the_cpu(cuda):
+    """MobileLLM-125M at its full widths, four layers, f32 with TF32 off:
+    prefill and three decode steps' logits on the card within 1e-3 of the
+    same model's on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models.model_zoo import build
+
+    cfg = dataclasses.replace(get_config("mobilellm_125m"), n_layers=4,
+                              dtype="float32")
+    on_card, on_cpu = build(cfg), build(cfg, device="cpu")
+    params = on_cpu.init(torch.Generator().manual_seed(1))
+    params_card = on_card.init(torch.Generator().manual_seed(1))
+    params_card.load_state_dict(params.state_dict())
+    tokens = on_cpu.make_batch(1, ShapeSpec("p", 67, 2, "decode"),
+                               train=False)["tokens"]
+    prompt = {"tokens": tokens[:, :64]}
+    got, cache = on_card.prefill_fn(params_card, prompt, 80)
+    want, cache_cpu = on_cpu.prefill_fn(params, prompt, 80)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+    for pos in range(64, 67):
+        tok = tokens[:, pos:pos + 1]
+        got, cache = on_card.decode_fn(params_card, cache, tok, pos)
+        want, cache_cpu = on_cpu.decode_fn(params, cache_cpu, tok, pos)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)

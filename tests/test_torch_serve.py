@@ -1,0 +1,171 @@
+"""The port's serving loop on the CPU: ``Server`` and its launcher.
+
+- The JAX package's ``test_server_generates_consistent_with_forward`` with
+  its assertions (exact ``n_steps``, greedy decode against the argmax of
+  the full forward).
+- The port's ``Server`` emits the JAX ``Server``'s tokens on the
+  reference's weights carried across.
+- ``build_kernels=True``: the first dispatch pass builds through the
+  process-wide build cache, the steady state builds nothing, a schedule
+  that does not concretize valid is skipped, and a failing build raises
+  instead of being swallowed.
+- ``python -m repro_torch.launch.serve --device cpu --continuous-tune``:
+  misses in round 0, tuned in round 1.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+from repro.configs import get_config as ref_get_config  # noqa: E402
+from repro.models.model_zoo import build as ref_build  # noqa: E402
+from repro.runtime.serve_loop import Server as RefServer  # noqa: E402
+
+from repro_torch import kernels  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import ShapeSpec  # noqa: E402
+from repro_torch.core import (CPU_EMULATE, EmulateRunner,  # noqa: E402
+                              ContinuousTuner, TrafficLog, TuningDatabase,
+                              build_cache_stats, clear_build_cache)
+from repro_torch.core import space as space_lib  # noqa: E402
+from repro_torch.models.model_zoo import (build,  # noqa: E402
+                                          from_numpy_params)
+from repro_torch.runtime.serve_loop import Server, decode_ops  # noqa: E402
+
+
+def _yi():
+    cfg = get_config("yi_6b").reduced()
+    bundle = build(cfg, remat="none", device="cpu")
+    params = bundle.init(torch.Generator().manual_seed(2))
+    prompts = np.asarray(
+        bundle.make_batch(0, ShapeSpec("p", 8, 2, "decode"),
+                          train=False)["tokens"])
+    return cfg, bundle, params, prompts
+
+
+def test_server_generates_consistent_with_forward():
+    _, bundle, params, prompts = _yi()
+    server = Server(bundle, params, max_len=32)
+
+    # n_steps must be exact: generate(0) emits nothing
+    out0 = server.generate(prompts, n_steps=0)
+    assert out0.tokens.shape == prompts.shape and out0.steps == 0
+    np.testing.assert_array_equal(out0.tokens, prompts)
+    out1 = server.generate(prompts, n_steps=1)
+    assert out1.tokens.shape == (2, 9) and out1.steps == 1
+
+    out = server.generate(prompts, n_steps=6)
+    assert out.tokens.shape == (2, 14)
+    # greedy decode must match greedy over the full forward logits
+    with torch.no_grad():
+        full = bundle.forward(params, {"tokens": out.tokens[:, :-1]})
+    greedy = torch.argmax(full[:, 7:], dim=-1).numpy()
+    np.testing.assert_array_equal(out.tokens[:, 8:], greedy)
+    assert out.dispatch is None
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "h2o_danube_1_8b"])
+def test_server_tokens_equal_the_reference_server_s(arch):
+    """The same weights, prompts and steps: the same tokens (danube's
+    sliding window of 16 is passed during the 12 decode steps)."""
+    ref_cfg = ref_get_config(arch).reduced()
+    rb = ref_build(ref_cfg, remat="none")
+    rp = rb.init(jax.random.key(5))
+    cfg = get_config(arch).reduced()
+    bundle = build(cfg, remat="none", device="cpu")
+    params = from_numpy_params(cfg, jax.tree.map(np.asarray, rp), "cpu")
+    prompts = np.asarray(rb.make_batch(1, ShapeSpec("p", 10, 3, "decode"),
+                                       train=False)["tokens"])
+    theirs = RefServer(rb, rp, max_len=24).generate(prompts, n_steps=13)
+    ours = Server(bundle, params, max_len=24).generate(prompts, n_steps=13)
+    assert ours.tokens.dtype == theirs.tokens.dtype
+    np.testing.assert_array_equal(ours.tokens, theirs.tokens)
+
+
+def test_build_kernels_steady_state_builds_nothing():
+    cfg, bundle, params, prompts = _yi()
+    ops = decode_ops(cfg, batch=2)
+    server = Server(bundle, params, max_len=16, hw=CPU_EMULATE,
+                    serve_ops=ops, database=TuningDatabase(),
+                    build_kernels=True)
+    clear_build_cache()
+    res = server.generate(prompts, n_steps=2)
+    assert res.dispatch == {"fixed": sum(c for c, _ in ops)}
+    first = build_cache_stats()
+    # one build per distinct lowering (QKV and up share a shape here)
+    assert first["misses"] == len({wl.key() for _, wl in ops}) == 4
+    server.generate(prompts, n_steps=2)
+    after = build_cache_stats()
+    assert after["misses"] == first["misses"]  # steady state: no builds
+    assert after["hits"] - first["hits"] == len(ops)
+
+
+def test_build_failure_raises_and_invalid_schedule_is_skipped(monkeypatch):
+    cfg, bundle, params, prompts = _yi()
+    ops = decode_ops(cfg, batch=2)
+    server = Server(bundle, params, max_len=16, hw=CPU_EMULATE,
+                    serve_ops=ops, database=TuningDatabase(),
+                    build_kernels=True)
+
+    def failing_build(*args, **kwargs):
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(kernels, "build", failing_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        server.generate(prompts, n_steps=2)
+
+    class Invalid:
+        valid = False
+
+    # a schedule that does not concretize on the shape: skipped, as in the
+    # JAX package, and the pass keeps serving
+    monkeypatch.setattr(space_lib, "concretize", lambda *a, **k: Invalid())
+    res = server.generate(prompts, n_steps=2)
+    assert res.dispatch == {"fixed": sum(c for c, _ in ops)}
+
+
+def test_server_flips_to_tuned_on_emulate_runner():
+    """The serving loop on the H100's design space, measured on the host:
+    cold "fixed", one ContinuousTuner cycle, then every op "tuned"."""
+    cfg, bundle, params, prompts = _yi()
+    ops = decode_ops(cfg, batch=1)
+    db, log = TuningDatabase(), TrafficLog()
+    server = Server(bundle, params, max_len=16, hw=CPU_EMULATE,
+                    serve_ops=ops, traffic=log, database=db)
+    total = sum(c for c, _ in ops)
+    assert server.generate(prompts[:1], n_steps=2).dispatch == \
+        {"fixed": total}
+    demand: dict[str, int] = {}
+    for count, wl in ops:
+        demand[wl.key()] = demand.get(wl.key(), 0) + count
+    assert {e.workload.key(): e.hits for e in log.hottest()} == demand
+    ContinuousTuner(log, CPU_EMULATE, runner=EmulateRunner(CPU_EMULATE),
+                    database=db, trials_per_shape=2,
+                    max_shapes_per_cycle=len(ops)).tune_once()
+    assert server.generate(prompts[:1], n_steps=2).dispatch == \
+        {"tuned": total}
+
+
+def test_launcher_continuous_tune_on_the_cpu(tmp_path):
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--continuous-tune", "--rounds", "2", "--tune-trials", "2",
+         "--gen-steps", "4", "--tune-db", str(tmp_path / "db.json")],
+        capture_output=True, text=True, timeout=300, env=env)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    r0 = next(line for line in lines if line.startswith("round 0"))
+    r1 = next(line for line in lines if line.startswith("round 1"))
+    assert "dispatch: fixed=" in r0 and "tuned" not in r0
+    assert "dispatch: tuned=" in r1 and "fixed" not in r1
+    assert (tmp_path / "db.json").exists()
