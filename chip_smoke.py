@@ -48,7 +48,12 @@ widths, unreduced:
   causal GQA, x30) and BERT-tiny at its 512 (``attention(1, 2, 2, 512, 512,
   64)`` f32 MHA, x2), taken from ``repro_torch.nets.mobilellm_125m("int8",
   seq=2048)`` and ``bert_tiny("int8", seq=512)``, through
-  ``TuningSession`` at pipeline depth 2.
+  ``TuningSession`` at pipeline depth 2;
+
+- the measurement farm (phase 7, N10): MobileLLM-125M's batch-1 decode
+  step tuned by ``TuningSession`` at pipeline depth 2 on a ``BoardFarm`` of
+  one ``LocalBoard`` (the card), every candidate built and timed by
+  ``CudaRunner`` in a worker process of its own on the card.
 
 The int8 qmatmul and the vmacc kernels take their operands at the real
 size (``qmatmul_ragged``, ``vmacc_ragged``: the wrappers pad nothing);
@@ -141,7 +146,24 @@ Phases (any failure exits nonzero and prints no result line):
      top-2 margin exceeds 1e-3, (b) the f32 prefill and first 8 decode
      steps' logits on the card equal to the CPU's within 1e-3, and
      ``python -m repro_torch.launch.serve --continuous-tune --rounds 2``
-     exiting 0. Its launches join the kernels line's.
+     exiting 0. Its launches join the kernels line's;
+  7. the measurement farm: (a) N10, the decode step's five gemv shapes at
+     full width, 16 trials a shape (seed 0), through a farm of one
+     ``LocalBoard`` on the card; every shape must resolve "tuned" with 0
+     worker restarts and no board death, each best schedule built in this
+     process must equal its plain version (1e-4 / 1e-3), and each best
+     latency re-timed by this process's ``CudaRunner`` must agree with the
+     farm's within 20 %; the tuned, fixed-library and library-call sums
+     beside phase 4's N1, the farm's counters and utilization; the
+     worker's launch counts (read there: they are per process) join the
+     kernels line's; (b) one ``MeasurePool`` worker on the card runs W1 at
+     its tuned block, a device-side assert, W1, a spin past the deadline,
+     W1: the outcomes must be ok, crash, ok, timeout, ok with 2 restarts,
+     the three W1 latencies within 20 %, and this process's context must
+     still measure; then a farm of one ``LocalBoard`` (no retries) takes a
+     batch with a faulting candidate, which must be ``INVALID`` while the
+     batch completes; (c) ``python examples/quickstart_torch.py`` must
+     exit 0.
 The last line is {"ok": true, "device": {...}}.
 
 Run:  python3 chip_smoke.py      (needs one CUDA card and nvcc)
@@ -159,6 +181,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# phase 7's pool tasks (tests/_torch_pool_tasks.py): spawned workers import
+# them by name, so they live in a module, not in this script
+sys.path.append(os.path.join(ROOT, "tests"))
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and op/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -533,6 +558,204 @@ def serving_phase(runner, card_line: str, close) -> dict[str, int]:
     if proc.returncode != 0:
         print(proc.stderr[-4000:], file=sys.stderr)
         raise RuntimeError("the serving launcher failed")
+    return launches
+
+
+# Phase 7: the measurement farm. N10 tunes 16 trials a shape (as phase 6);
+# the fault sequence's candidate deadline, and a spin well past it.
+FARM_TRIALS, FAULT_TIMEOUT_S, SPIN_S = 16, 6.0, 20.0
+
+
+def farm_phase(runner, close, n1_tuned_s: float, w1_best) -> dict[str, int]:
+    """Phase 7: the measurement farm on the card. (a) N10: MobileLLM-125M's
+    batch-1 decode tuned by ``TuningSession(pipeline_depth=2)`` through a
+    ``BoardFarm`` of one ``LocalBoard`` (every candidate built and timed in
+    a worker process on the card); (b) fault isolation: a device-side
+    assert and a spin past the deadline each cost one worker respawn, in a
+    ``MeasurePool`` and through a farm; (c) ``examples/quickstart_torch.py``
+    in its own process. Returns the launch counts read from (a)'s worker
+    (zeroed there just before the session, read just after)."""
+    import torch
+
+    import _torch_pool_tasks
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import (H100, BoardFarm, LocalBoard, MeasurePool,
+                                  Schedule, TuningDatabase, TuningSession,
+                                  baseline_latency, kernel_params)
+    from repro_torch.core import workload as W
+    from repro_torch.core.measure_pool import _initializer
+    from repro_torch.runtime.serve_loop import decode_ops
+
+    inf = float("inf")
+
+    # ---- (a) N10 through a farm of one LocalBoard ------------------------
+    decode = decode_ops(get_config("mobilellm_125m"), 1)
+    n_unique = len({wl.key() for _, wl in decode})
+    # the board's task is the default measurement plus reading and zeroing
+    # the worker's launch counts (they are per process); it concretizes
+    # every schedule, so the farm's static screen stays on as for the
+    # default task
+    board = LocalBoard("h100-0", H100, device=0, repeats=runner.repeats,
+                       warmup=runner.warmup,
+                       task=_torch_pool_tasks.measure_or_counts)
+    board.static_screenable = True
+    farm = BoardFarm([board], straggler_timeout_s=600.0)
+    db = TuningDatabase()
+    try:
+        t0 = time.perf_counter()
+        reset = board._ensure_pool().run_many(["reset_launch_counts"])[0]
+        if not reset.ok:
+            raise RuntimeError(f"the farm's worker did not start: "
+                               f"{reset.status} {reset.error}")
+        print(f"  worker start-up (spawn, torch, CUDA context, kernels' "
+              f"build check): {time.perf_counter() - t0:.2f} s")
+        res = TuningSession(H100, farm, database=db, pipeline_depth=2,
+                            min_trials=FARM_TRIALS).tune_model(
+            decode, total_trials=FARM_TRIALS * n_unique, seed=SEED,
+            model="mobilellm_125m-decode-b1-farm")
+        counts = board._ensure_pool().run_many(["launch_counts"])[0]
+        restarts = board._pool.restarts
+        summary = farm.farm_summary()
+    finally:
+        farm.close()
+    if not counts.ok:
+        raise RuntimeError(f"reading the worker's launch counts: "
+                           f"{counts.status} {counts.error}")
+    launches = counts.value
+    print(f"  launches in the farm's worker: {launches}")
+    stats = summary["boards"]["h100-0"]
+    print(f"  farm: dispatched {stats['dispatched']}, completed "
+          f"{stats['completed']}, requeued {stats['requeued']}, deaths "
+          f"{stats['deaths']}, respawns {stats['respawns']}, utilization "
+          f"{stats['utilization']:.4f} (busy {stats['busy_s']:.2f} s of "
+          f"{summary['measure_wall_s']:.2f} s active); static_rejected "
+          f"{summary['static_rejected']}; pool restarts {restarts}")
+    t_lib = 0.0
+    for rep in res.reports:
+        wl = rep.workload
+        params, provenance = kernel_params(wl, H100, database=db)
+        if provenance != "tuned" or not rep.best_latency < inf:
+            raise RuntimeError(f"{wl.key()}: not tuned through the farm "
+                               f"({provenance}, {rep.best_latency})")
+        inputs = runner.inputs(wl)
+        got = kernels.build(wl, params)(*inputs)
+        want = kernels.build(wl, params, device="cpu")(
+            *(t.cpu() for t in inputs))
+        entry = "" if params.accumulate else " noacc"
+        close(got.cpu(), want, 1e-4, 1e-3,
+              f"  farm-tuned x{rep.count} {wl.key()} {params.block}{entry} "
+              f"built in the parent vs plain")
+        again = runner.run(wl, rep.best_schedule)
+        lib = baseline_latency(wl)
+        t_lib += rep.count * lib
+        ratio = max(again, rep.best_latency) / min(again, rep.best_latency)
+        print(f"    x{rep.count}: farm {rep.best_latency*1e6:.2f} us, parent "
+              f"re-timed {again*1e6:.2f} us (x{ratio:.3f}), fixed library "
+              f"{rep.fixed_latency*1e6:.2f} us, library call "
+              f"{lib*1e6:.2f} us, {rep.trials} trials")
+        if ratio > 1.2:
+            raise RuntimeError(f"{wl.key()}: the farm's latency and the "
+                               f"parent's differ by more than 20 %")
+    print(f"  N10 mobilellm_125m decode through the farm: "
+          f"{len(res.reports)} unique workloads, {res.total_trials} trials, "
+          f"interleaved {res.interleaved} (depth {res.pipeline_depth}, "
+          f"multi-queue {res.multi_queue}); tuned "
+          f"{res.tuned_latency*1e6:.2f} us, fixed library "
+          f"{res.fixed_latency*1e6:.2f} us, library call {t_lib*1e6:.2f} us "
+          f"(each the sum of count x latency); phase 4's in-process N1 tuned "
+          f"{n1_tuned_s*1e6:.2f} us; overlap fraction "
+          f"{res.overlap_fraction:.4f}; wall {res.wall_time_s:.2f} s")
+    if len(res.reports) != n_unique or res.total_trials != \
+            FARM_TRIALS * n_unique:
+        raise RuntimeError("N10: not every shape was tuned its trials")
+    if restarts or stats["deaths"] or stats["requeued"]:
+        raise RuntimeError("N10: the farm lost a worker or a board")
+    if not res.multi_queue or res.board_stats is None:
+        raise RuntimeError("N10: the session did not reach the farm's native "
+                           "submission path and counters")
+    for name in ("_gemv_kernel", "_gemv_noacc_kernel"):
+        if not launches.get(name):
+            raise RuntimeError(f"{name} was not launched in the farm's worker")
+
+    # ---- (b) fault isolation on the card ---------------------------------
+    wl1 = W.qmatmul(3136, 64, 576)
+    cand = ("measure", (H100, wl1, w1_best, runner.repeats, runner.warmup))
+    tasks = [cand, ("device_assert", None), cand, ("spin", SPIN_S), cand]
+    pool = MeasurePool(_torch_pool_tasks.card_task, workers=1,
+                       timeout_s=FAULT_TIMEOUT_S,
+                       initializer=_initializer(
+                           H100, _torch_pool_tasks.card_task),
+                       devices=[0])
+    with pool:
+        t0 = time.perf_counter()
+        pool.run_many([("reset_launch_counts", None)])
+        t_start = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = pool.run_many(tasks)
+        wall = time.perf_counter() - t0
+        restarts = pool.restarts
+        tail = pool.run_many([("launch_counts", None)])[0]
+    statuses = [o.status for o in out]
+    respawn_s = (wall - sum(o.elapsed_s for o in out)) / max(restarts, 1)
+    print(f"  (b) one worker on the card: {statuses}, restarts {restarts}; "
+          f"start-up {t_start:.2f} s, respawn {respawn_s:.2f} s each (the "
+          f"sequence's wall {wall:.2f} s less its tasks' time, over the "
+          f"restarts); the fault: {out[1].error.splitlines()[0]}; the spin: "
+          f"{out[3].error}; the last worker's launches {tail.value}")
+    if statuses != ["ok", "crash", "ok", "timeout", "ok"] or restarts != 2:
+        raise RuntimeError(f"fault isolation: {statuses}, {restarts} "
+                           f"restarts; want ok, crash, ok, timeout, ok and 2")
+    lats = [out[i].value for i in (0, 2, 4)]
+    print(f"    W1 {w1_best.as_dict()} in the worker: "
+          + ", ".join(f"{x*1e6:.2f}" for x in lats) + " us")
+    if max(lats) > 1.2 * min(lats):
+        raise RuntimeError("fault isolation: the real candidate's latencies "
+                           "differ by more than 20 %")
+    mine = runner.run(wl1, w1_best)
+    print(f"    the parent's CudaRunner afterwards: {mine*1e6:.2f} us")
+    if not 0 < mine < inf:
+        raise RuntimeError("the parent's context did not survive")
+
+    # the same through a BoardFarm of one LocalBoard, in the shape of the
+    # reference's test_candidate_that_kills_every_board_goes_invalid_after_
+    # retries: the faulting candidate is INVALID, the batch completes
+    fault = Schedule.fixed(variant="device_assert")
+    batch = [w1_best, fault, w1_best]
+    board = LocalBoard("h100-0", H100, device=0, repeats=runner.repeats,
+                       warmup=runner.warmup,
+                       candidate_timeout_s=FAULT_TIMEOUT_S,
+                       task=_torch_pool_tasks.measure_or_fault)
+    with BoardFarm([board], max_retries=0,
+                   straggler_timeout_s=600.0) as farm:
+        got = farm.run_batch(wl1, batch)
+        restarts = board._pool.restarts
+        summary = farm.farm_summary()
+    print(f"  (b) through a farm of one LocalBoard: latencies "
+          + ", ".join(f"{x*1e6:.2f}" if x < inf else "INVALID" for x in got)
+          + f" us; pool restarts {restarts}; board healthy "
+          f"{board.healthy}; invalid_after_retries "
+          f"{summary['invalid_after_retries']}")
+    if got[1] != inf or not all(0 < x < inf for x in (got[0], got[2])) \
+            or restarts != 1 or not board.healthy:
+        raise RuntimeError("the farm did not isolate the faulting candidate")
+
+    # ---- (c) the example ---------------------------------------------------
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")]
+        + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cmd = [sys.executable, os.path.join("examples", "quickstart_torch.py")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    print(f"  (c) python examples/quickstart_torch.py: exit code "
+          f"{proc.returncode} in {time.perf_counter() - t0:.1f} s")
+    for line in proc.stdout.splitlines()[-9:]:
+        print("    " + line)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise RuntimeError("examples/quickstart_torch.py failed")
+    torch.cuda.synchronize()
     return launches
 
 
@@ -1574,8 +1797,19 @@ def main() -> int:
           f"(batch 1 and 4, {SERVE_TRIALS} trials a shape, seed {SEED})")
     launches6 = serving_phase(runner, card_line, close)
     print(f"launches on the serving path: {launches6}")
+
+    # ---------------------------------------------------------------- 7 ----
+    phase(f"7. measurement farm: MobileLLM-125M batch-1 decode (N10) through "
+          f"a BoardFarm of one LocalBoard (TuningSession, depth 2, "
+          f"{FARM_TRIALS} trials a shape, seed {SEED}); fault isolation; "
+          f"examples/quickstart_torch.py")
+    launches7 = farm_phase(runner, close,
+                           sessions["mobilellm_125m decode"].tuned_latency,
+                           results[wl1.key()][0].best_schedule)
+    print(f"launches on the farm path (its worker's): {launches7}")
     for r in rows:
-        r["launches"] += launches6.get(r["name"], 0)
+        r["launches"] += launches6.get(r["name"], 0) \
+            + launches7.get(r["name"], 0)
 
     print("rows " + json.dumps(rows))
     print(card_line)

@@ -3,9 +3,10 @@ PyTorch and CUDA.
 
 Public API:
     Workload, Schedule, HardwareConfig / H100, tune(), TuningDatabase,
-    CudaRunner / EmulateRunner / AnalyticRunner, MeasureScheduler,
-    TuningSession, TrafficLog / ContinuousTuner, best_schedule() /
-    kernel_params() / ensure_tuned().
+    CudaRunner / EmulateRunner / AnalyticRunner, MeasurePool /
+    SubprocessRunner, BoardFarm / LocalBoard / SimulatedBoard,
+    MeasureScheduler, TuningSession, TrafficLog / ContinuousTuner,
+    best_schedule() / kernel_params() / ensure_tuned().
 """
 
 from repro_torch.core.hardware import (CPU_EMULATE, H100, INTERPRET, SWEEP,
@@ -33,6 +34,11 @@ from repro_torch.core.cost_model import (RidgeCostModel, features,
 from repro_torch.core.runner import (AnalyticRunner, CudaRunner,
                                      EmulateRunner, baseline_latency,
                                      run_batch)
+from repro_torch.core.measure_pool import MeasurePool, SubprocessRunner
+from repro_torch.core.board_farm import (Board, BoardDied, BoardFarm,
+                                         BoardStats, Fault, FarmDead,
+                                         LocalBoard, SimulatedBoard,
+                                         simulated_farm)
 from repro_torch.core.database import (TuningDatabase, default_db_path,
                                        global_database,
                                        reset_global_database)
@@ -64,7 +70,9 @@ __all__ = [
     "v1_distinct_configs", "TraceSampler", "Diagnostic", "SpaceReport",
     "analyze", "lint_space", "pruned_program", "RidgeCostModel", "features",
     "pretrain_from_database", "CudaRunner", "EmulateRunner", "AnalyticRunner",
-    "baseline_latency", "run_batch", "AdaptiveDepthPolicy",
+    "baseline_latency", "run_batch", "SubprocessRunner", "MeasurePool",
+    "Board", "BoardDied", "BoardFarm", "BoardStats", "Fault", "FarmDead",
+    "LocalBoard", "SimulatedBoard", "simulated_farm", "AdaptiveDepthPolicy",
     "MeasureScheduler", "MeasureTicket", "SerialMeasureQueue",
     "TuningDatabase", "default_db_path", "global_database",
     "reset_global_database", "tune", "TuneDriver", "TuneResult",

@@ -93,11 +93,14 @@ class CudaHardwareConfig(HardwareConfig):
     - ``hbm_*``: device memory; ``ici_bandwidth``: NVLink, one direction.
 
     Registration is via :data:`H100`; :func:`check_device` holds the
-    values read from the card against it.
+    values read from the card against it. ``on_card`` is False for
+    :data:`CPU_EMULATE`, which shares the H100's design space but runs the
+    kernels' plain versions on the host.
     """
 
     int8_k_grain: int = 32
     sm_count: int = 132
+    on_card: bool = True
 
     def sublane_align(self, dtype: str) -> int:
         # No TPU-style sublane packing: an int8 row tile is 16 rows like any
@@ -177,7 +180,7 @@ CPU_EMULATE = dataclasses.replace(
     H100, name="cpu_emulate",
     peak_flops_bf16=1e11, peak_flops_f32=1e11, peak_flops_int8=1e11,
     hbm_bandwidth=20e9, hbm_capacity=8 * GiB, ici_bandwidth=1e9,
-    grid_step_overhead_s=50e-6,
+    grid_step_overhead_s=50e-6, on_card=False,
 )
 
 SWEEP = (V5E_VMEM32, V5E_VMEM64, V5E)
@@ -188,6 +191,11 @@ _REGISTRY = {hw.name: hw for hw in (V5E, V5E_VMEM32, V5E_VMEM64, V5E_MXU256,
 
 def get(name: str) -> HardwareConfig:
     return _REGISTRY[name]
+
+
+def on_card(hw: HardwareConfig) -> bool:
+    """Whether candidates on ``hw`` are measured on a CUDA card."""
+    return isinstance(hw, CudaHardwareConfig) and hw.on_card
 
 
 def check_device(hw: CudaHardwareConfig, device: int = 0) -> None:

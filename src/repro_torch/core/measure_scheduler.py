@@ -11,9 +11,9 @@ while the host evolves the next generation. The pieces:
   ``max_inflight`` capacity hint — how many submitted batches can make
   *physical* progress concurrently (1 for one card). Backends that
   additionally declare ``supports_priority`` accept a ``priority=`` keyword
-  on ``submit_batch`` and dispatch higher-priority batches first. No runner
-  of the port has a native ``submit_batch`` yet (the JAX package's board
-  farm is not ported); the native path is kept for when one does.
+  on ``submit_batch`` and dispatch higher-priority batches first.
+  :class:`~repro_torch.core.board_farm.BoardFarm` implements the protocol
+  natively (``max_inflight`` = its board count).
 - :class:`SerialMeasureQueue` — the default adapter wrapping any synchronous
   ``run_batch`` runner (``CudaRunner``, ``EmulateRunner``,
   ``AnalyticRunner``) behind one measurement thread. The queue is

@@ -19,6 +19,13 @@ thread times the current one; the analytic model does not, and is clamped
 to the synchronous loop. ``max_inflight`` is how many submitted batches can
 make progress at once: 1 for each of them (one card, one host).
 
+These runners measure in the calling process. To measure each candidate in
+a worker process of its own — killed at a per-candidate deadline, and
+respawned when a kernel fault leaves its CUDA context unusable — wrap the
+same measurement in :class:`~repro_torch.core.measure_pool.
+SubprocessRunner`, or in a :class:`~repro_torch.core.board_farm.BoardFarm`
+of :class:`~repro_torch.core.board_farm.LocalBoard` s (one per card).
+
 Kernel builds go through the process-wide
 :class:`~repro_torch.core.build_cache.BuildCache`, keyed by
 ``(params.signature(), backend)``; ``space.concretize`` is memoized per
@@ -133,8 +140,13 @@ class CudaRunner:
     launch (bad configuration, too many resources). A fault while a kernel
     runs (illegal address and the like) raises: the CUDA context is then
     unusable, and marking the candidate invalid would silently mark every
-    later candidate invalid too. No CPU fallback: constructing the runner
-    without a card raises.
+    later candidate invalid too. A kernel that never completes blocks the
+    runner for good. To survive either, measure through
+    :class:`~repro_torch.core.measure_pool.SubprocessRunner` or a
+    :class:`~repro_torch.core.board_farm.LocalBoard`: each runs this runner
+    in a worker process on its card, and a fault or a hang there costs the
+    candidate (``INVALID``) and a worker respawn. No CPU fallback:
+    constructing the runner without a card raises.
 
     Candidates are built, run and timed on the runner's own CUDA stream, on
     the card that was current when it was made, whichever thread calls: a

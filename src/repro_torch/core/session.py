@@ -56,9 +56,10 @@ Sessions are also the engine of **traffic-driven continuous tuning**
 hands each cycle's traffic-log entries to :meth:`TuningSession.tune_model`
 with their hit counts as multiplicities.
 
-The JAX package's board farm (``board_stats``, ``preemptions``) is not
-ported; the summary keeps its keys (``None`` / 0) so that session records
-read alike in both packages.
+On a :class:`~repro_torch.core.board_farm.BoardFarm` the summary carries
+the farm's per-board counters (``board_stats``: dispatched, completed,
+requeued, deaths, respawns, utilization) and its ``preemptions``; on a
+single-target runner they are ``None`` / 0.
 """
 
 from __future__ import annotations
@@ -233,8 +234,8 @@ class SessionResult:
     measure_span_s: float = 0.0
     multi_queue: bool = False  # batches from many drivers in flight at once
     model: str = ""  # model/config name, for cross-session trend reports
-    # per-target counters of a runner with ``farm_summary`` (the JAX
-    # package's board farm); None for every runner of the port
+    # per-board counters of a runner with ``farm_summary`` (a board farm);
+    # None for single-target runners
     board_stats: dict | None = None
     # ---- adaptation observability ----
     adaptive_depth: bool = False  # depth policy was active

@@ -38,8 +38,8 @@ measurements land.
 
 Submission goes through a :class:`~repro_torch.core.measure_scheduler.
 MeasureScheduler`, which holds **multiple batches from multiple drivers in
-flight concurrently**: runners with a native async ``submit_batch`` (the
-JAX package's board farm; none in the port yet) keep every target busy
+flight concurrently**: runners with a native async ``submit_batch`` (a
+:class:`~repro_torch.core.board_farm.BoardFarm`) keep every board busy
 across batch — and workload — boundaries, while plain synchronous runners
 (``CudaRunner`` among them: one card) are wrapped in the scheduler's
 single-FIFO measurement thread.

@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of ``src/repro_torch`` and
-every module ``chip_smoke.py`` names in an import (inside ``main`` too)
-loads neither ``jax`` nor any module of the JAX package ``repro``. Checked
-in a fresh interpreter, so that what other tests imported does not count."""
+every module ``chip_smoke.py`` and ``examples/quickstart_torch.py`` name in
+an import (inside ``main`` too) loads neither ``jax`` nor any module of the
+JAX package ``repro``. Checked in a fresh interpreter, so that what other
+tests imported does not count."""
 
 import os
 import subprocess
@@ -15,10 +16,13 @@ import repro_torch
 for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(mod.name)
 import ast
-# chip_smoke.py imports most modules inside main(): import each it names
-with open("chip_smoke.py") as f:
-    tree = ast.parse(f.read())
-for node in ast.walk(tree):
+# chip_smoke.py imports most modules inside main(): import each it names,
+# and each the example names
+trees = []
+for path in ("chip_smoke.py", "examples/quickstart_torch.py"):
+    with open(path) as f:
+        trees.append(ast.parse(f.read()))
+for node in (n for tree in trees for n in ast.walk(tree)):
     if isinstance(node, ast.Import):
         for alias in node.names:
             importlib.import_module(alias.name)
@@ -38,8 +42,9 @@ sys.exit(1 if bad else 0)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    # chip_smoke.py puts tests/ on its path for phase 7's pool tasks
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [os.path.join(ROOT, "src"), ROOT]))
+        [os.path.join(ROOT, "src"), ROOT, os.path.join(ROOT, "tests")]))
     out = subprocess.run([sys.executable, "-c", _CHECK], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
