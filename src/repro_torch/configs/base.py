@@ -185,8 +185,7 @@ SHAPES: dict[str, ShapeSpec] = {
     "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
 }
 
-# The model pool. The port's model zoo builds the dense and vlm families;
-# the others are configurations only until their models are ported.
+# The model pool; the port's model zoo builds every family.
 ARCH_IDS = (
     "granite_3_2b", "gemma3_1b", "yi_6b", "h2o_danube_1_8b",
     "recurrentgemma_2b", "whisper_tiny", "qwen2_vl_7b", "qwen2_moe_a2_7b",

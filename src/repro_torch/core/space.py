@@ -69,6 +69,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import math
 import threading
 from typing import Any, Callable, Iterator, Mapping
@@ -416,6 +417,9 @@ def sample_tile_split(name: str, candidates: CandidatesFn,
     return Instruction(name, SAMPLE_TILE_SPLIT, candidates, legacy)
 
 
+# Pure in its three integers, and called for every replayed decision of the
+# search: memoized.
+@functools.lru_cache(maxsize=4096)
 def tile_candidates(extent: int, align: int, base: int) -> tuple[int, ...]:
     """Perfect-tile block candidates for one loop extent.
 

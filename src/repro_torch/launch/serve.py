@@ -1,5 +1,7 @@
-"""Serving launcher: batched prefill+decode for a dense or vlm architecture
-(the JAX package's ``launch/serve.py``, ported).
+"""Serving launcher: batched prefill+decode for any architecture of the
+model pool at its reduced size (the JAX package's ``launch/serve.py``,
+ported). The encoder-decoder family's stub frames ride in the batch beside
+the prompts.
 
 With ``--continuous-tune`` the launcher closes the serving↔tuning loop the
 way a production deployment would: the server resolves each decode step's

@@ -1,2 +1,2 @@
-"""Model zoo of the port (the JAX package's ``models``): the dense and vlm
-families."""
+"""Model zoo of the port (the JAX package's ``models``): every family —
+dense and vlm, moe, ssm, hybrid and encdec."""

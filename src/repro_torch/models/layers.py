@@ -29,11 +29,19 @@ from repro_torch.configs.base import ArchConfig
 def _dense_init(shape, generator: torch.Generator, scale=None):
     """f32 normal of ``shape`` scaled by ``1/sqrt(fan_in)`` (``shape[-2]``:
     the stacked layer dim, where present, leads), drawn from
-    ``generator`` on its device."""
+    ``generator`` on its device. Scaled in place: a stacked expert tensor
+    (Qwen1.5-MoE's is 17.7 GB in f32) is never held twice."""
     fan_in = shape[-2] if len(shape) > 1 else shape[0]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     return torch.randn(shape, generator=generator, dtype=torch.float32,
-                       device=generator.device) * scale
+                       device=generator.device).mul_(scale)
+
+
+def init_norm(d: int, generator: torch.Generator,
+              stack: tuple[int, ...] = ()):
+    """A norm's f32 scale of ones, on ``generator``'s device."""
+    return torch.ones((*stack, d), dtype=torch.float32,
+                      device=generator.device)
 
 
 # --------------------------------------------------------------------- norms --

@@ -1,10 +1,10 @@
-"""Uniform model API over the architecture families (the JAX package's
-``models/model_zoo.py``, ported for the dense and vlm families).
+"""Uniform model API over all architecture families (the JAX package's
+``models/model_zoo.py``, ported).
 
 ``build(cfg)`` returns a :class:`ModelBundle` with the same entry points as
 the reference's, so the serving loop treats every architecture alike:
 
-    init(generator) -> params (a :class:`~repro_torch.models.transformer.Transformer`)
+    init(generator) -> params (a :class:`~repro_torch.models.transformer.Model`)
     loss_fn(params, batch) -> scalar f32 loss
     forward(params, batch) -> logits (B, S, V)
     prefill_fn(params, batch, max_len) -> (logits, cache)
@@ -13,8 +13,9 @@ the reference's, so the serving loop treats every architecture alike:
     make_batch(seed, shape, train) -> numpy batch
 
 Batches may hold numpy arrays or tensors; they are moved to the device of
-the parameters. ``init`` and ``init_cache`` place their tensors on the
-bundle's ``device`` ("cuda" unless the caller asks for "cpu").
+the parameters. The encoder-decoder family reads its stub frame embeddings
+from ``batch["frames"]``. ``init`` and ``init_cache`` place their tensors
+on the bundle's ``device`` ("cuda" unless the caller asks for "cpu").
 :func:`from_numpy_params` carries the JAX package's parameters (as numpy)
 across, so both packages compute the same thing.
 """
@@ -28,13 +29,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
-from repro_torch.models import layers, transformer
+from repro_torch.models import encdec, griffin, layers, moe, ssm, transformer
 
-# The families whose models are not ported yet, and where ROADMAP.md lists
-# the work that ports them.
-_UNPORTED = {"moe": "models/moe.py", "ssm": "models/ssm.py",
-             "hybrid": "models/griffin.py", "encdec": "models/encdec.py"}
-_ROADMAP_ITEM = "ROADMAP.md §1 item 7 (Models: the other families)"
+# The module that implements each family.
+FAMILIES = {"dense": transformer, "vlm": transformer, "moe": moe,
+            "ssm": ssm, "hybrid": griffin, "encdec": encdec}
 
 
 @dataclasses.dataclass
@@ -60,41 +59,47 @@ def _inputs(params, batch: dict) -> dict:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
+def _family(cfg: ArchConfig):
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family}")
+    return FAMILIES[cfg.family]
+
+
 def build(cfg: ArchConfig, remat: str = "full",
           device="cuda") -> ModelBundle:
     """The bundle of ``cfg``'s family. ``remat`` is accepted for the
     reference's signature and ignored (no backward pass runs yet)."""
     fam = cfg.family
+    mod = _family(cfg)
     device = torch.device(device)
-    if fam in _UNPORTED:
-        raise NotImplementedError(
-            f"the {fam} family ({_UNPORTED[fam]}) is not ported yet: "
-            f"{_ROADMAP_ITEM}")
-    if fam not in ("dense", "vlm"):
-        raise ValueError(f"unknown family {fam}")
-    mod = transformer
+
+    def model_inputs(batch, tokens):
+        """The positional and keyword inputs of the family's forward and
+        prefill besides the parameters and the config."""
+        if fam == "encdec":
+            return (batch["frames"], tokens), {}
+        if fam in ("dense", "vlm"):
+            return (tokens,), {
+                "inputs_embeds": batch.get("patch_embeds"),
+                "mrope_positions": batch.get("mrope_positions")}
+        return (tokens,), {}
 
     def loss_fn(params, batch):
         batch = _inputs(params, batch)
         tokens = batch["tokens"]
-        logits = mod.forward(params, tokens[:, :-1], cfg,
-                             inputs_embeds=batch.get("patch_embeds"),
-                             mrope_positions=batch.get("mrope_positions"),
-                             remat=remat)
+        args, kwargs = model_inputs(batch, tokens[:, :-1])
+        logits = mod.forward(params, *args, cfg, remat=remat, **kwargs)
         return layers.lm_loss(logits, tokens[:, 1:])
 
     def forward(params, batch):
         batch = _inputs(params, batch)
-        return mod.forward(params, batch["tokens"], cfg,
-                           inputs_embeds=batch.get("patch_embeds"),
-                           mrope_positions=batch.get("mrope_positions"),
-                           remat=remat)
+        args, kwargs = model_inputs(batch, batch["tokens"])
+        return mod.forward(params, *args, cfg, remat=remat, **kwargs)
 
     def prefill_fn(params, batch, max_len):
         batch = _inputs(params, batch)
-        return mod.prefill(params, batch["tokens"], cfg, max_len,
-                           inputs_embeds=batch.get("patch_embeds"),
-                           mrope_positions=batch.get("mrope_positions"))
+        args, kwargs = model_inputs(batch, batch["tokens"])
+        return mod.prefill(params, *args, cfg, max_len, **kwargs)
 
     def decode_fn(params, cache, tokens, pos):
         tokens = torch.as_tensor(tokens, device=_param_device(params))
@@ -123,6 +128,9 @@ def build(cfg: ArchConfig, remat: str = "full",
                 (b, n_patch, cfg.d_model)).astype(np.float32)
             pos = np.broadcast_to(np.arange(s), (b, 3, s)).astype(np.int32)
             batch["mrope_positions"] = np.ascontiguousarray(pos)
+        if fam == "encdec":
+            batch["frames"] = rng.standard_normal(
+                (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
         return batch
 
     return ModelBundle(cfg, init, loss_fn, forward, prefill_fn, decode_fn,
@@ -130,17 +138,15 @@ def build(cfg: ArchConfig, remat: str = "full",
 
 
 def from_numpy_params(cfg: ArchConfig, tree: dict,
-                      device="cuda") -> transformer.Transformer:
+                      device="cuda") -> transformer.Model:
     """The port's parameters from the JAX package's parameter tree with
-    numpy leaves (``jax.tree.map(np.asarray, bundle.init(key))``): the same
-    names, shapes and values, on ``device``."""
-    if cfg.family not in ("dense", "vlm"):
-        raise NotImplementedError(
-            f"the {cfg.family} family is not ported yet: {_ROADMAP_ITEM}")
+    numpy leaves (``jax.tree.map(np.asarray, bundle.init(key))``), for any
+    family: the same names, shapes and values, on ``device``."""
+    mod = _family(cfg)
 
     def tensors(node):
         if isinstance(node, dict):
             return {k: tensors(v) for k, v in node.items()}
         return torch.tensor(np.asarray(node, dtype=np.float32))
 
-    return transformer.Transformer(cfg, tensors(tree)).to(device)
+    return transformer.Model(cfg, tensors(tree), mod.forward).to(device)

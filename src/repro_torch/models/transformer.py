@@ -4,7 +4,7 @@ JAX package's ``models/transformer.py`` ported.
 The per-layer parameters are stacked with a leading ``(L, ...)`` dim under
 the reference's leaf names (``layers.attn.wq`` is the reference's
 ``params["layers"]["attn"]["wq"]``), so the reference's vmapped init tree,
-the checkpoint layout and :class:`Transformer`'s ``state_dict`` line up one
+the checkpoint layout and :class:`Model`'s ``state_dict`` line up one
 to one. The reference's ``lax.scan`` over layers is a loop over the layer
 index here; per-layer attention windows come from the config, so one loop
 expresses full, sliding-window and local:global interleaved patterns
@@ -51,43 +51,41 @@ def layer_slice(tree: ParamTree, i: int) -> dict:
     return out
 
 
-class Transformer(ParamTree):
-    """The parameters of one dense or vlm model (``embedding``, ``lm_head``
-    when untied, the stacked ``layers`` and ``final_norm``); calling it is
-    :func:`forward`."""
+class Model(ParamTree):
+    """The parameters of one model of any family under the reference's
+    names (``embedding``, ``lm_head`` when untied, the stacked layers or
+    units, the norms) with its config; calling it is its family's
+    ``forward`` (``family_forward(self, *inputs, cfg, **kwargs)``)."""
 
-    def __init__(self, cfg: ArchConfig, tree: dict):
+    def __init__(self, cfg: ArchConfig, tree: dict, family_forward):
         super().__init__(tree)
         self.cfg = cfg
+        self._family_forward = family_forward
 
-    def forward(self, tokens, *, inputs_embeds=None, mrope_positions=None):
-        return forward(self, tokens, self.cfg, inputs_embeds=inputs_embeds,
-                       mrope_positions=mrope_positions)
+    def forward(self, *inputs, **kwargs):
+        return self._family_forward(self, *inputs, self.cfg, **kwargs)
 
 
 def _init_layers(cfg: ArchConfig, generator: torch.Generator) -> dict:
     stack = (cfg.n_layers,)
-    ones = torch.ones(stack + (cfg.d_model,), dtype=torch.float32,
-                      device=generator.device)
     return {
-        "ln1": ones.clone(),
+        "ln1": L.init_norm(cfg.d_model, generator, stack),
         "attn": L.init_attention(cfg, generator, stack),
-        "ln2": ones.clone(),
+        "ln2": L.init_norm(cfg.d_model, generator, stack),
         "mlp": L.init_mlp(cfg.d_model, cfg.d_ff, cfg.act, generator, stack),
     }
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device="cuda") -> Transformer:
+                device="cuda") -> Model:
     """Random parameters drawn from ``generator`` (on its device), placed
     on ``device``."""
     tree = {
         **L.init_embedding(cfg, generator),
         "layers": _init_layers(cfg, generator),
-        "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32,
-                                 device=generator.device),
+        "final_norm": L.init_norm(cfg.d_model, generator),
     }
-    return Transformer(cfg, tree).to(device)
+    return Model(cfg, tree, forward).to(device)
 
 
 def _block(x, lp, window: int, cfg: ArchConfig, positions, mrope_positions):
@@ -111,7 +109,7 @@ def _embed_inputs(params, tokens, cfg: ArchConfig, inputs_embeds):
     return x, positions
 
 
-def forward(params: Transformer, tokens, cfg: ArchConfig, *,
+def forward(params: Model, tokens, cfg: ArchConfig, *,
             inputs_embeds=None, mrope_positions=None, remat: str = "full"):
     """tokens (B, S) -> logits (B, S, V).
 
@@ -150,7 +148,7 @@ def _uniform_window(cfg: ArchConfig) -> int | None:
 
 
 @torch.no_grad()
-def decode_step(params: Transformer, cache, tokens, pos: int,
+def decode_step(params: Model, cache, tokens, pos: int,
                 cfg: ArchConfig, *, mrope_positions=None):
     """One-token decode. tokens (B, 1); pos — write position.
 
@@ -177,7 +175,7 @@ def decode_step(params: Transformer, cache, tokens, pos: int,
 
 
 @torch.no_grad()
-def prefill(params: Transformer, tokens, cfg: ArchConfig, max_len: int, *,
+def prefill(params: Model, tokens, cfg: ArchConfig, max_len: int, *,
             inputs_embeds=None, mrope_positions=None):
     """Forward + cache construction for serving. Returns (logits, cache)."""
     x, positions = _embed_inputs(params, tokens, cfg, inputs_embeds)

@@ -27,8 +27,11 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# Tensors here are small and six test processes share the cores: one
+# intra-op thread each, not a pool spinning per process.
+torch.set_num_threads(1)
 
-import jax  # noqa: E402,F401  (the reference package runs on JAX)
+import jax  # noqa: E402
 from benchmarks import nets as ref_nets  # noqa: E402
 from repro import kernels as ref_kernels  # noqa: E402
 from repro.core import AnalyticRunner as RefAnalytic  # noqa: E402
@@ -89,6 +92,24 @@ def _jax_params(params):
     return ref_space.KernelParams(**dataclasses.asdict(params))
 
 
+_PALLAS = {}
+
+
+def _pallas(wl, params):
+    """The Pallas kernel in interpret mode for ``params``, built (and so
+    jitted) once per workload and KernelParams: cases that differ only in
+    their inputs share its compile."""
+    key = (wl.key(), params.signature())
+    if key not in _PALLAS:
+        _PALLAS[key] = ref_kernels.build(wl, _jax_params(params),
+                                         interpret=True, cache=False)
+    return _PALLAS[key]
+
+
+# the reference's oracle, jitted: one compile per shape, not one per op
+_jax_oracle = jax.jit(jax_attention_ref, static_argnames="causal")
+
+
 def _both(wl, params, seed, q_scale=1.0):
     """The port's kernel path (plain version, on the CPU) and the Pallas
     kernel in interpret mode on the same inputs (q scaled by ``q_scale``)
@@ -96,8 +117,7 @@ def _both(wl, params, seed, q_scale=1.0):
     assert params.valid, params.why_invalid
     q, k, v = wl.example_inputs(seed)
     inputs = (q * np.float32(q_scale), k, v)
-    want = np.asarray(ref_kernels.build(wl, _jax_params(params),
-                                        interpret=True, cache=False)(*inputs))
+    want = np.asarray(_pallas(wl, params)(*inputs))
     got = kernels.build(wl, params, device="cpu", cache=False)(*inputs)
     assert tuple(got.shape) == want.shape and got.dtype == torch.float32
     return got.double().numpy(), want.astype(np.float64), inputs
@@ -105,7 +125,7 @@ def _both(wl, params, seed, q_scale=1.0):
 
 def _oracles(wl, inputs):
     causal = "causal" in wl.tags
-    theirs = np.asarray(jax_attention_ref(*inputs, causal=causal))
+    theirs = np.asarray(_jax_oracle(*inputs, causal=causal))
     ours = attention_ref(*map(torch.from_numpy, inputs), causal=causal)
     return ours.double().numpy(), theirs.astype(np.float64)
 

@@ -2,8 +2,10 @@
 their assertions (round trip and GC, async and atomic, a property round
 trip), a model's parameters through its ``state_dict``, and restores across
 packages in both directions: a checkpoint either package writes restores in
-the other, and the restored models compute the same logits."""
+the other, and the restored models compute the same logits — for the vlm
+model and for a moe (stacked experts) and a hybrid (units and a tail) one."""
 
+import dataclasses
 import os
 
 import numpy as np
@@ -15,6 +17,9 @@ except ImportError:  # optional dev dep: property tests skip, the rest run
     from _hypothesis_stub import given, settings, st
 
 torch = pytest.importorskip("torch")
+# Tensors here are small and six test processes share the cores: one
+# intra-op thread each, not a pool spinning per process.
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -88,9 +93,10 @@ def test_checkpoint_property_roundtrip(tmp_path_factory, seed):
 
 
 def _pair(arch="qwen2_vl_7b"):
-    """The reference's bundle and random parameters, and the port's bundle
-    and its own (different) random parameters."""
+    """The reference's bundle (its forward jitted) and random parameters,
+    and the port's bundle and its own (different) random parameters."""
     rb = ref_build(ref_get_config(arch).reduced(), remat="none")
+    rb = dataclasses.replace(rb, forward=jax.jit(rb.forward))
     port = build(get_config(arch).reduced(), remat="none", device="cpu")
     return rb, rb.init(jax.random.key(3)), port, port.init(
         torch.Generator().manual_seed(3))
@@ -127,3 +133,31 @@ def test_port_checkpoint_restores_in_the_reference(tmp_path):
         {"params": rp, "step": jnp.int32(0)})
     assert step == 9 and extra == {"data_step": 9}
     _logits_equal(rb, restored["params"], port, params)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "recurrentgemma_2b"])
+def test_family_checkpoints_restore_across_packages(tmp_path, arch):
+    """A moe and a hybrid model: the port's checkpoint restores in the
+    reference and the reference's in the port, leaf for leaf, and the
+    restored models compute the same logits."""
+    rb, rp, port, params = _pair(arch)
+    CheckpointManager(str(tmp_path / "port")).save(
+        1, {"params": params}, extra={"arch": arch})
+    _, theirs, extra = RefCheckpointManager(str(tmp_path / "port")).restore(
+        {"params": rp})
+    assert extra == {"arch": arch}
+    _logits_equal(rb, theirs["params"], port, params)
+    RefCheckpointManager(str(tmp_path / "ref")).save(2, {"params": rp})
+    fresh = port.init(torch.Generator().manual_seed(4))
+    _, ours, _ = CheckpointManager(str(tmp_path / "ref")).restore(
+        {"params": fresh}, device="cpu")
+    assert ours["params"] is fresh
+    flat = {"__".join(str(getattr(p, "key", p)) for p in path): leaf
+            for path, leaf in jax.tree_util.tree_flatten_with_path(rp)[0]}
+    assert flat.keys() == {k.replace(".", "__")
+                           for k in fresh.state_dict()}
+    for key, value in fresh.state_dict().items():
+        np.testing.assert_array_equal(value.numpy(),
+                                      np.asarray(flat[key.replace(".",
+                                                                  "__")]))
+    _logits_equal(rb, rp, port, fresh)

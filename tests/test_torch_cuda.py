@@ -1170,3 +1170,37 @@ def test_f32_logits_on_the_card_match_the_cpu(cuda):
         got, cache = on_card.decode_fn(params_card, cache, tok, pos)
         want, cache_cpu = on_cpu.decode_fn(params, cache_cpu, tok, pos)
         torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "moonshot_v1_16b_a3b",
+                                  "mamba2_780m", "recurrentgemma_2b",
+                                  "whisper_tiny"])
+def test_family_logits_on_the_card_match_the_cpu(cuda, arch):
+    """The moe, ssm, hybrid and encdec families at reduced(), f32 with
+    TF32 off: forward, prefill and three decode steps' logits on the card
+    within 1e-3 of the same model's on the CPU (whisper's frames in the
+    batch)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models.model_zoo import build
+
+    cfg = get_config(arch).reduced()
+    on_card, on_cpu = build(cfg), build(cfg, device="cpu")
+    params = on_cpu.init(torch.Generator().manual_seed(1))
+    params_card = on_card.init(torch.Generator().manual_seed(1))
+    params_card.load_state_dict(params.state_dict())
+    batch = on_cpu.make_batch(1, ShapeSpec("p", 19, 2, "decode"),
+                              train=False)
+    with torch.no_grad():
+        torch.testing.assert_close(on_card.forward(params_card, batch).cpu(),
+                                   on_cpu.forward(params, batch), rtol=1e-3,
+                                   atol=1e-3)
+    prompt = dict(batch, tokens=batch["tokens"][:, :16])
+    got, cache = on_card.prefill_fn(params_card, prompt, 24)
+    want, cache_cpu = on_cpu.prefill_fn(params, prompt, 24)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+    for pos in range(16, 19):
+        tok = batch["tokens"][:, pos:pos + 1]
+        got, cache = on_card.decode_fn(params_card, cache, tok, pos)
+        want, cache_cpu = on_cpu.decode_fn(params, cache_cpu, tok, pos)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)

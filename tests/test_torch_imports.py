@@ -31,13 +31,19 @@ for node in (n for tree in trees for n in ast.walk(tree)):
         for alias in node.names:
             if not hasattr(base, alias.name):  # a submodule
                 importlib.import_module(f"{node.module}.{alias.name}")
+# every model family's module among them
+missing = [m for m in ("repro_torch.models.moe", "repro_torch.models.ssm",
+                       "repro_torch.models.griffin",
+                       "repro_torch.models.encdec")
+           if m not in sys.modules]
+print("missing", missing)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
 print("imported", len([m for m in sys.modules
                        if m.startswith("repro_torch")]))
 print("bad", bad)
-sys.exit(1 if bad else 0)
+sys.exit(1 if bad or missing else 0)
 """
 
 

@@ -25,6 +25,9 @@ import json
 import pytest
 
 torch = pytest.importorskip("torch")
+# Tensors here are small and six test processes share the cores: one
+# intra-op thread each, not a pool spinning per process.
+torch.set_num_threads(1)
 
 import jax  # noqa: E402,F401  (the reference package runs on JAX)
 from benchmarks import nets as ref_nets  # noqa: E402

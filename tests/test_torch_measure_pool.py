@@ -24,6 +24,9 @@ import time
 import pytest
 
 torch = pytest.importorskip("torch")
+# Tensors here are small and six test processes share the cores: one
+# intra-op thread each, not a pool spinning per process.
+torch.set_num_threads(1)
 
 from repro_torch.core import (CPU_EMULATE, H100, INTERPRET, BoardFarm,  # noqa: E402
                               EmulateRunner, LocalBoard, Schedule,

@@ -4,13 +4,17 @@
   its assertions (exact ``n_steps``, greedy decode against the argmax of
   the full forward).
 - The port's ``Server`` emits the JAX ``Server``'s tokens on the
-  reference's weights carried across.
+  reference's weights carried across, for a config of every family
+  (whisper's stub frames through ``extra_batch``).
+- ``decode_ops`` equals the reference's for all twelve configs, the
+  zero-width rows of attention-free Mamba2 pinned, and both packages'
+  dispatch resolves those rows to "fixed".
 - ``build_kernels=True``: the first dispatch pass builds through the
   process-wide build cache, the steady state builds nothing, a schedule
   that does not concretize valid is skipped, and a failing build raises
   instead of being swallowed.
 - ``python -m repro_torch.launch.serve --device cpu --continuous-tune``:
-  misses in round 0, tuned in round 1.
+  misses in round 0, tuned in round 1, for a dense and a moe config.
 """
 
 import os
@@ -21,18 +25,28 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# Tensors here are small and six test processes share the cores: one
+# intra-op thread each, not a pool spinning per process.
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 from repro.configs import get_config as ref_get_config  # noqa: E402
+from repro.core import TrafficLog as RefTrafficLog  # noqa: E402
+from repro.core import TuningDatabase as RefDatabase  # noqa: E402
+from repro.core import hardware as ref_hw  # noqa: E402
+from repro.core.dispatch import best_schedule as ref_best  # noqa: E402
 from repro.models.model_zoo import build as ref_build  # noqa: E402
 from repro.runtime.serve_loop import Server as RefServer  # noqa: E402
+from repro.runtime.serve_loop import decode_ops as ref_decode_ops  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, EXTRA_IDS, get_config  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
-from repro_torch.core import (CPU_EMULATE, EmulateRunner,  # noqa: E402
-                              ContinuousTuner, TrafficLog, TuningDatabase,
-                              build_cache_stats, clear_build_cache)
+from repro_torch.core import (CPU_EMULATE, H100, V5E,  # noqa: E402
+                              ContinuousTuner, EmulateRunner, TrafficLog,
+                              TuningDatabase, build_cache_stats,
+                              clear_build_cache)
+from repro_torch.core.dispatch import best_schedule  # noqa: E402
 from repro_torch.core import space as space_lib  # noqa: E402
 from repro_torch.models.model_zoo import (build,  # noqa: E402
                                           from_numpy_params)
@@ -70,22 +84,67 @@ def test_server_generates_consistent_with_forward():
     assert out.dispatch is None
 
 
-@pytest.mark.parametrize("arch", ["yi_6b", "h2o_danube_1_8b"])
+@pytest.mark.parametrize("arch", ["yi_6b", "h2o_danube_1_8b",
+                                  "qwen2_moe_a2_7b", "mamba2_780m",
+                                  "recurrentgemma_2b", "whisper_tiny"])
 def test_server_tokens_equal_the_reference_server_s(arch):
-    """The same weights, prompts and steps: the same tokens (danube's
-    sliding window of 16 is passed during the 12 decode steps)."""
+    """The same weights, prompts and steps: the same tokens (danube's and
+    recurrentgemma's sliding window of 16 is passed during the 12 decode
+    steps; whisper's frames ride in ``extra_batch``)."""
     ref_cfg = ref_get_config(arch).reduced()
     rb = ref_build(ref_cfg, remat="none")
     rp = rb.init(jax.random.key(5))
     cfg = get_config(arch).reduced()
     bundle = build(cfg, remat="none", device="cpu")
     params = from_numpy_params(cfg, jax.tree.map(np.asarray, rp), "cpu")
-    prompts = np.asarray(rb.make_batch(1, ShapeSpec("p", 10, 3, "decode"),
-                                       train=False)["tokens"])
-    theirs = RefServer(rb, rp, max_len=24).generate(prompts, n_steps=13)
-    ours = Server(bundle, params, max_len=24).generate(prompts, n_steps=13)
+    batch = rb.make_batch(1, ShapeSpec("p", 10, 3, "decode"), train=False)
+    prompts = np.asarray(batch.pop("tokens"))
+    extra = {k: np.asarray(v) for k, v in batch.items()} or None
+    assert (extra is not None) == (cfg.family == "encdec")
+    theirs = RefServer(rb, rp, max_len=24).generate(prompts, n_steps=13,
+                                                    extra_batch=extra)
+    ours = Server(bundle, params, max_len=24).generate(prompts, n_steps=13,
+                                                       extra_batch=extra)
     assert ours.tokens.dtype == theirs.tokens.dtype
     np.testing.assert_array_equal(ours.tokens, theirs.tokens)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS + EXTRA_IDS)
+def test_decode_ops_equal_the_reference_s(arch):
+    """Every config, published widths, batch 1 (gemv) and 4 (matmul): the
+    reference's workloads, counts and order."""
+    for batch in (1, 4):
+        ours = decode_ops(get_config(arch), batch)
+        theirs = ref_decode_ops(ref_get_config(arch), batch)
+        assert [(c, wl.key()) for c, wl in ours] == \
+            [(c, wl.key()) for c, wl in theirs]
+
+
+def test_mamba2_zero_width_rows_resolve_fixed_in_both_packages():
+    """Attention-free Mamba2 has q_dim and d_ff 0, so decode_ops gives
+    zero-width gemvs. Kept for parity: both packages resolve them (and the
+    rest of the step) to "fixed" and log them as misses, which is why the
+    card serves Mamba2 without a dispatch layer."""
+    ops = decode_ops(get_config("mamba2_780m"), 1)
+    assert [(c, wl.op, wl.dims) for c, wl in ops] == [
+        (48, "gemv", (0, 1536)), (48, "gemv", (1536, 0)),
+        (96, "gemv", (0, 1536)), (48, "gemv", (1536, 0)),
+        (1, "gemv", (50304, 1536))]
+    log, ref_log = TrafficLog(), RefTrafficLog()
+    for (count, wl), (_, ref_wl) in zip(
+            ops, ref_decode_ops(ref_get_config("mamba2_780m"), 1)):
+        for hw, traffic in ((H100, None), (V5E, log)):
+            sched, provenance = best_schedule(wl, hw,
+                                              database=TuningDatabase(),
+                                              traffic=traffic, count=count)
+            assert provenance == "fixed" and sched is not None
+        ref_sched, ref_provenance = ref_best(ref_wl, ref_hw.V5E,
+                                             database=RefDatabase(),
+                                             traffic=ref_log, count=count)
+        assert ref_provenance == "fixed"
+        assert sched.to_json() == ref_sched.to_json()
+    assert [(e.workload.key(), e.hits) for e in log.hottest()] == \
+        [(e.workload.key(), e.hits) for e in ref_log.hottest()]
 
 
 def test_build_kernels_steady_state_builds_nothing():
@@ -152,16 +211,32 @@ def test_server_flips_to_tuned_on_emulate_runner():
         {"tuned": total}
 
 
-def test_launcher_continuous_tune_on_the_cpu(tmp_path):
+def _launch(tmp_path, *args):
     src = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "src")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    out = subprocess.run(
+    return subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
          "--continuous-tune", "--rounds", "2", "--tune-trials", "2",
-         "--gen-steps", "4", "--tune-db", str(tmp_path / "db.json")],
+         "--gen-steps", "4", "--tune-db", str(tmp_path / "db.json"), *args],
         capture_output=True, text=True, timeout=300, env=env)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b"])
+def test_launcher_serves_the_families_on_the_cpu(tmp_path, arch):
+    out = _launch(tmp_path, "--arch", arch)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith(f"arch={get_config(arch).reduced().name} ")
+    r0 = next(line for line in lines if line.startswith("round 0"))
+    r1 = next(line for line in lines if line.startswith("round 1"))
+    assert "dispatch: fixed=" in r0 and "tuned" not in r0
+    assert "dispatch: tuned=" in r1 and "fixed" not in r1
+
+
+def test_launcher_continuous_tune_on_the_cpu(tmp_path):
+    out = _launch(tmp_path)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.splitlines()
     r0 = next(line for line in lines if line.startswith("round 0"))

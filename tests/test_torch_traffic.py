@@ -11,6 +11,9 @@ on the same recorded traffic, cycle by cycle, with identical records."""
 import pytest
 
 torch = pytest.importorskip("torch")
+# Tensors here are small and six test processes share the cores: one
+# intra-op thread each, not a pool spinning per process.
+torch.set_num_threads(1)
 
 from repro_torch.core import (H100, AnalyticRunner,  # noqa: E402
                               ContinuousTuner, EmulateRunner, Schedule,
