@@ -60,7 +60,13 @@ widths, unreduced:
   through ``Server`` and one ``ContinuousTuner`` cycle at batch 1 and 4,
   as phase 6 serves MobileLLM-125M (the gemv kernels at its expert widths,
   the bf16 matmul kernels at four rows); Mamba2-780M, RecurrentGemma-2B and
-  Whisper-tiny (1500 stub frames) at their published widths.
+  Whisper-tiny (1500 stub frames) at their published widths;
+
+- training (phase 9, T1): Granite-3-2B unreduced (2.53 B parameters, f32
+  masters, bf16 compute) through the train launcher's ``Trainer`` under a
+  ``Supervisor``: autograd through every layer, AdamW in place, the
+  launcher's batch 8 at sequence 128 of ``SyntheticLM``. No kernel of the
+  port runs in it: the reference's training path holds no Pallas kernel.
 
 The int8 qmatmul and the vmacc kernels take their operands at the real
 size (``qmatmul_ragged``, ``vmacc_ragged``: the wrappers pad nothing);
@@ -135,8 +141,8 @@ Phases (any failure exits nonzero and prints no result line):
      MobileNetV2 f32's costliest matmul and DCGAN's 1024 x 64 x 512 on
      both; the 3xTF32 figure beside the bound of every f32 matmul and
      attention row). A row's bound counts
-     the bytes and operations of the operands the path hands the kernel:
-     the real, unpadded ones for qmatmul and vmacc;
+     the bytes and operations of the function's real, unpadded operands
+     and output;
   6. the serving path: MobileLLM-125M unreduced (30 layers, d_model 576,
      9 query and 3 KV heads, bf16 compute on f32 master weights from a
      seeded generator) through ``Server`` with 64-token prompts and 32
@@ -147,7 +153,10 @@ Phases (any failure exits nonzero and prints no result line):
      kernels at four rows at batch 4), the next round must resolve
      {"tuned": 151}, each tuned schedule's output on the card must equal
      its plain version's on the CPU (bf16, 5e-2), and of two rounds with
-     ``build_kernels`` the second must build nothing; then the tuner in the background (start, generate,
+     ``build_kernels`` the second must build nothing; then batch-1 decode
+     on the tuned database with the layers' views from one ``unbind`` per
+     stack against the parent's per-layer indexing, alternated three times
+     each (decode ms a step); then the tuner in the background (start, generate,
      wait_idle, generate: "tuned"); then (a) in f32 with TF32 off, greedy
      decode equal to the argmax of the full forward wherever its top-1/
      top-2 margin exceeds 1e-3, (b) the f32 prefill and first 8 decode
@@ -187,9 +196,27 @@ Phases (any failure exits nonzero and prints no result line):
      (each op through dispatch, every resolved kernel built and launched)
      at their published widths: a served round and a profiled step, f32
      greedy decode against the forward, and reduced() prefill and decode
-     logits on the card within 1e-3 of the CPU's. The gemv kernels are
-     timed at Qwen1.5-MoE's five decode shapes on its tuned blocks (rows on
-     the ``kernels`` line), and phase 8's launches join the line's.
+     logits on the card within 1e-3 of the CPU's. The gemv kernels (batch
+     1) and the bf16 matmul kernels (batch 4) are timed at Qwen1.5-MoE's
+     five decode shapes on its tuned blocks (rows on the ``kernels`` line),
+     and phase 8's launches join the line's;
+  9. training, with under 1 GB of the card allocated at its start: (a)
+     Granite-3-2B unreduced, 20 steps (lr TRAIN_LR), every loss and grad
+     norm finite and the mean loss of steps 15-19 below step 0's; the step
+     ms (median of steps 3-19), tokens/s, 6 N tokens / step against the
+     989 TFLOP/s bf16 peak, peak memory against the 16 bytes a parameter
+     of masters, grads and moments; one step profiled (card ms, idle
+     share, operations, the optimizer update's card ms), once with the
+     stacked layers taken apart by ``unbind`` and once with the parent's
+     per-layer indexing; one step at remat "full" beside one at "none"
+     (peak memory, step ms); (b) MobileLLM-125M unreduced in f32, two
+     steps on the card and on the CPU from one set of weights: each loss
+     within 1e-4, the first grad norm within 1e-4 relative; (c) the same
+     model with int8-compressed gradients, 12 steps with checkpoints every
+     5 under build/ and a failure injected at step 8: one restart, 12
+     steps, steps 10-11's losses an uninterrupted run's at rtol 1e-5; (d)
+     every architecture at reduced(), f32, one step on the card and on the
+     CPU: loss within 1e-4, grad norm within 1e-4 relative.
 The last line is {"ok": true, "device": {...}}.
 
 Run:  python3 chip_smoke.py      (needs one CUDA card and nvcc)
@@ -498,6 +525,49 @@ def profile_decode_step(bundle, params, prompts, max_len: int,
           f"{1 - busy / wall:.1%} of it")
 
 
+def _indexed_layers(tree) -> list[dict]:
+    """The parent's layer views: ``param[i]`` per layer (``layer_slice``),
+    so that in a backward each layer writes a zero tensor the size of the
+    whole stack."""
+    from repro_torch.models import transformer as T
+
+    n = T.tree_tensors(tree)[0].shape[0]
+    return [T.layer_slice(tree, i) for i in range(n)]
+
+
+def compare_layer_views(bundle, params, prompts, max_len: int, ops,
+                        db) -> None:
+    """Batch-1 decode after tuning (a Server on the tuned database ``db``)
+    with each stack taken apart by one ``unbind`` per step and with the
+    parent's ``param[i]`` per layer patched in, alternated unbind, indexed,
+    indexed, unbind, unbind, indexed: each round's decode ms a step and
+    each way's median."""
+    import contextlib
+    import statistics
+    from unittest import mock
+
+    from repro_torch.core import H100
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.serve_loop import Server
+
+    server = Server(bundle, params, max_len=max_len, hw=H100, serve_ops=ops,
+                    database=db)
+    server.generate(prompts, 2)
+    times = {"unbind": [], "indexed": []}
+    for way in ("unbind", "indexed", "indexed", "unbind", "unbind",
+                "indexed"):
+        with contextlib.ExitStack() as stack:
+            if way == "indexed":
+                stack.enter_context(
+                    mock.patch.object(T, "unbind_layers", _indexed_layers))
+            res = server.generate(prompts, SERVE_GEN)
+        times[way].append(res.decode_s * 1e3 / (SERVE_GEN - 1))
+    print("  layer views at decode (batch 1, tuned): "
+          + "; ".join(f"{way} " + " ".join(f"{t:.3f}" for t in ts)
+                      + f" ms a step (median {statistics.median(ts):.3f})"
+                      for way, ts in times.items()))
+
+
 def serving_phase(runner, card_line: str, close) -> dict[str, int]:
     """Phase 6: the port's serving path at MobileLLM-125M's full width —
     ``Server`` resolving each decode step's workloads through dispatch,
@@ -557,19 +627,21 @@ def serving_phase(runner, card_line: str, close) -> dict[str, int]:
                                                  batch, "decode"),
                                  train=False)["tokens"]
 
-    launches = {}
+    launches, dbs = {}, {}
     for batch, needed in ((1, ("_gemv_kernel", "_gemv_noacc_kernel")),
                           (4, ("_acc_kernel",))):
-        counts, _, _, _ = serve_rounds(bundle, params, prompts_of(batch),
-                                       max_len, runner, close, needed)
+        counts, _, dbs[batch], _ = serve_rounds(
+            bundle, params, prompts_of(batch), max_len, runner, close,
+            needed)
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 
     profile_decode_step(bundle, params, prompts_of(1), max_len)
+    ops = decode_ops(cfg, 1)
+    compare_layer_views(bundle, params, prompts_of(1), max_len, ops, dbs[1])
 
     # the background tuner, as launch/serve.py drives it: start, generate,
     # wait_idle, generate, stop (fresh database, warm build cache)
-    ops = decode_ops(cfg, 1)
     total = sum(count for count, _ in ops)
     db, log = TuningDatabase(), TrafficLog()
     server = Server(bundle, params, max_len=max_len, hw=H100,
@@ -1032,7 +1104,7 @@ def families_phase(runner, card_line: str, close):
     dispatch, each resolved kernel built and launched) at their published
     widths: prefill and decode on the card, f32 greedy against the forward,
     reduced() against the CPU. Returns the launch counts of its serving
-    loops and the batch-1 tuner's database and reports."""
+    loops and the batch-1 and batch-4 tuners' databases and reports."""
     import dataclasses
 
     import torch
@@ -1078,7 +1150,7 @@ def families_phase(runner, card_line: str, close):
             SEED, ShapeSpec("serve", SERVE_PROMPT, batch, "decode"),
             train=False)
 
-    launches, sums, batch1 = {}, {}, None
+    launches, sums, tuners = {}, {}, {}
     for batch, needed in ((1, ("_gemv_kernel", "_gemv_noacc_kernel")),
                           (4, ("_acc_kernel",))):
         counts, result, db, library = serve_rounds(
@@ -1087,8 +1159,7 @@ def families_phase(runner, card_line: str, close):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
         sums[batch] = (result.tuned_latency, result.fixed_latency, library)
-        if batch == 1:
-            batch1 = (db, result.reports)
+        tuners[batch] = (db, result.reports)
     profile_decode_step(bundle, params, prompts_of(1)["tokens"], max_len)
     print(f"  peak memory so far {torch.cuda.max_memory_allocated() / 1e9:.2f}"
           f" GB of {total_mem / 1e9:.2f} GB")
@@ -1157,7 +1228,340 @@ def families_phase(runner, card_line: str, close):
         print(f"  {cfg.name} batch {batch} tuner cycle (count x latency over "
               f"the five shapes): tuned {tuned * 1e6:.2f} us, fixed library "
               f"{fixed * 1e6:.2f} us, library call {library * 1e6:.2f} us")
-    return launches, batch1
+    return launches, tuners
+
+
+# Phase 9: training (T1). Granite-3-2B unreduced through the train
+# launcher's objects at its defaults (batch 8, seq 128, SyntheticLM seed 0,
+# remat none) but the lr: the launcher's 3e-3 (its reduced configs') makes
+# the full-width model's loss rise; 3e-4 makes it fall steadily. Then card
+# against CPU and the restart at MobileLLM-125M's width, and one step of
+# every family at reduced().
+TRAIN_STEPS, TRAIN_LR = 20, 3e-4
+GRANITE_WIDTHS = (40, 2048, 32, 8, 64, 8192, 49155, True, "bfloat16")
+# H100 SXM dense bf16 peak (the published figure PEAK_OPS holds)
+BF16_PEAK = PEAK_OPS["bfloat16"]
+
+
+def profile_train_step(trainer, label: str) -> dict:
+    """One more step of ``trainer`` under torch.profiler: the card's
+    operations, their summed time, the optimizer update's card time (the
+    ``adamw.update`` range), against the step's wall time unprofiled (the
+    step before it)."""
+    import torch
+
+    trainer.run(1)
+    wall = trainer.records[-1].wall_s
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        trainer.run(1)
+        torch.cuda.synchronize()
+    events = prof.events()
+    on_card = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.name != "adamw.update"]
+    busy = sum(e.device_time for e in on_card) / 1e6
+    opt = [e.device_time_total for e in events if e.name == "adamw.update"
+           and e.device_type == torch.autograd.DeviceType.CPU]
+    opt_ms = max(opt) / 1e3 if opt else float("nan")
+    print(f"  {label}: {len(on_card)} operations on the card, "
+          f"{busy * 1e3:.3f} ms of device time in a {wall * 1e3:.3f} ms "
+          f"step (unprofiled): the card idles {1 - busy / wall:.1%} of it; "
+          f"the optimizer update {opt_ms:.3f} ms of device time")
+    return {"ops": len(on_card), "card_ms": busy * 1e3,
+            "wall_ms": wall * 1e3, "opt_ms": opt_ms}
+
+
+def granite_training(card_line: str) -> None:
+    """(a) Granite-3-2B unreduced: TRAIN_STEPS steps through a Trainer
+    under a Supervisor, finite and falling; step time, tokens/s, model
+    TFLOP/s against the bf16 peak, peak memory against the reckoning; one
+    step profiled with the layers taken apart by unbind and one with the
+    parent's per-layer indexing; one step with remat="full"."""
+    import statistics
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model_zoo import build
+    from repro_torch.runtime.supervisor import Supervisor
+    from repro_torch.runtime.train_loop import make_train_step
+
+    args = launch_train.parse_args([
+        "--arch", "granite_3_2b", "--no-reduced", "--steps",
+        str(TRAIN_STEPS), "--lr", str(TRAIN_LR), "--seed", str(SEED)])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = launch_train.make_trainer(args)
+    torch.cuda.synchronize()
+    cfg = trainer.bundle.cfg
+    widths = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+              cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.tie_embeddings,
+              cfg.dtype)
+    if widths != GRANITE_WIDTHS:
+        raise RuntimeError(f"granite_3_2b is not at its published widths: "
+                           f"{widths}")
+    n = sum(p.numel() for p in trainer.state["params"].parameters())
+    tokens = args.batch * args.seq_len
+    print(f"  (a) {cfg.name}: {n} parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s; f32 masters, {cfg.dtype} "
+          f"compute, remat {args.remat}; batch {args.batch} x seq "
+          f"{args.seq_len} = {tokens} tokens a step from SyntheticLM(seed="
+          f"{args.seed}); lr {args.lr}, warmup {trainer.opt_cfg.warmup_steps},"
+          f" cosine over {trainer.opt_cfg.total_steps} steps, weight decay "
+          f"{trainer.opt_cfg.weight_decay}")
+    print(f"  memory reckoning: 16 bytes a parameter (masters, grads, m, v) "
+          f"{16 * n / 1e9:.2f} GB, the bf16 casts {2 * n / 1e9:.2f} GB, "
+          f"then activations")
+    report = Supervisor(trainer).run(TRAIN_STEPS)
+    recs = trainer.records
+    losses = [r.loss for r in recs]
+    gnorms = [r.metrics["grad_norm"] for r in recs]
+    print("  losses " + " ".join(f"{x:.4f}" for x in losses))
+    print("  grad norms " + " ".join(f"{x:.3f}" for x in gnorms))
+    if report.completed_steps != TRAIN_STEPS or report.restarts:
+        raise RuntimeError(f"granite training: {report}")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise RuntimeError("granite training: a loss or grad norm is not "
+                           "finite")
+    late = statistics.fmean(losses[15:20])
+    if not late < losses[0]:
+        raise RuntimeError(f"granite training: the loss did not fall "
+                           f"(step 0 {losses[0]:.4f}, steps 15-19 "
+                           f"{late:.4f})")
+    step_s = statistics.median(r.wall_s for r in recs[3:TRAIN_STEPS])
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  loss step 0 {losses[0]:.4f}, mean of steps 15-19 {late:.4f}; "
+          f"step {step_s * 1e3:.2f} ms (median of steps 3-19), "
+          f"{tokens / step_s:.0f} tokens/s, 6 N tokens / step "
+          f"{6 * n * tokens / step_s / 1e12:.1f} TFLOP/s = "
+          f"{6 * n * tokens / step_s / BF16_PEAK:.1%} of the "
+          f"{BF16_PEAK / 1e12:.0f} TFLOP/s bf16 peak ({card_line}); peak "
+          f"memory {peak / 1e9:.2f} GB against the 16 N = "
+          f"{16 * n / 1e9:.2f} GB reckoning")
+
+    unbound = profile_train_step(trainer, "one step, layers unbound")
+    with mock.patch.object(T, "unbind_layers", _indexed_layers):
+        indexed = profile_train_step(trainer, "one step, the parent's "
+                                              "per-layer indexing")
+    print(f"  layer_slice: unbind {unbound['card_ms']:.3f} ms of card time, "
+          f"{unbound['ops']} operations, {unbound['wall_ms']:.3f} ms wall; "
+          f"per-layer indexing {indexed['card_ms']:.3f} ms, "
+          f"{indexed['ops']} operations, {indexed['wall_ms']:.3f} ms wall")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.run(1)
+    none_peak, none_ms = torch.cuda.max_memory_allocated(), \
+        trainer.records[-1].wall_s * 1e3
+    trainer.train_step = make_train_step(build(cfg, remat="full"),
+                                         trainer.opt_cfg)
+    # the first checkpointed step in a process pays torch's one-time import
+    # of its checkpoint machinery (seconds); the second is the one reported
+    trainer.run(1)
+    first_ms = trainer.records[-1].wall_s * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    trainer.run(1)
+    full_peak, full_ms = torch.cuda.max_memory_allocated(), \
+        trainer.records[-1].wall_s * 1e3
+    if not all(math.isfinite(r.loss) for r in trainer.records):
+        raise RuntimeError("granite training: a later step is not finite")
+    print(f"  remat none: peak {none_peak / 1e9:.2f} GB, step "
+          f"{none_ms:.2f} ms; remat full: peak {full_peak / 1e9:.2f} GB, "
+          f"step {full_ms:.2f} ms (its first step {first_ms:.2f} ms)")
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def _card_and_cpu(cfg, seed: int):
+    """Bundles of ``cfg`` on the card and the CPU and one set of weights
+    (drawn on the CPU) carried to both with ``from_numpy_params``."""
+    import torch
+
+    from repro_torch.models.model_zoo import build, from_numpy_params
+    from repro_torch.optim.tree import nest
+
+    cpu = build(cfg, remat="none", device="cpu")
+    drawn = cpu.init(torch.Generator().manual_seed(seed))
+    tree = nest({name: p.detach().numpy()
+                 for name, p in drawn.named_parameters()})
+    return (build(cfg, remat="none"), from_numpy_params(cfg, tree, "cuda"),
+            cpu, from_numpy_params(cfg, tree, "cpu"))
+
+
+def mobilellm_card_vs_cpu(close) -> None:
+    """(b) MobileLLM-125M unreduced in f32 (TF32 off): two train steps on
+    the card and two on the CPU from one set of weights and one
+    SyntheticLM stream: each loss within 1e-4, the first step's grad norm
+    within 1e-4 relative, the largest gradient difference printed."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.train_loop import make_train_step
+
+    cfg = dataclasses.replace(get_config("mobilellm_125m"), dtype="float32")
+    on_card, p_card, on_cpu, p_cpu = _card_and_cpu(cfg, SEED)
+    data = SyntheticLM(cfg.vocab_size, 64, 2, seed=SEED)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10,
+                      weight_decay=0.0)
+    batch = data.batch_at(0)
+    grads = [torch.autograd.grad(b.loss_fn(p, batch), list(p.parameters()))
+             for b, p in ((on_card, p_card), (on_cpu, p_cpu))]
+    worst = max(float((g.cpu() - h).abs().max())
+                for g, h in zip(*grads))
+    scale = max(float(h.abs().max()) for h in grads[1])
+    print(f"  (b) {cfg.name} f32: largest gradient difference, card vs "
+          f"CPU, {worst:.3g} (largest gradient {scale:.3g})")
+    del grads
+    states = [{"params": p, "opt": adamw.init(p)} for p in (p_card, p_cpu)]
+    steps = [make_train_step(b, opt) for b in (on_card, on_cpu)]
+    for i in range(2):
+        metrics = []
+        for k in range(2):
+            states[k], m = steps[k](states[k], data.batch_at(i))
+            metrics.append(m)
+        losses = [float(m["loss"]) for m in metrics]
+        close(torch.tensor(losses[0]), torch.tensor(losses[1]), 0, 1e-4,
+              f"    step {i} loss {losses[0]:.6f}, card vs CPU")
+        if i == 0:
+            norms = [float(m["grad_norm"]) for m in metrics]
+            close(torch.tensor(norms[0]), torch.tensor(norms[1]), 1e-4, 0,
+                  f"    step 0 grad norm {norms[0]:.6f}, card vs CPU")
+    del states, p_card, p_cpu
+
+
+def mobilellm_restart(close) -> None:
+    """(c) MobileLLM-125M unreduced with compressed gradients: 12 steps
+    under a Supervisor, checkpoints every 5 under build/, an injected
+    failure at step 8; one restart, 12 steps, and steps 10-11's losses
+    those of an uninterrupted run at rtol 1e-5."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model_zoo import build
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.supervisor import InjectedFailure, Supervisor
+    from repro_torch.runtime.train_loop import (Trainer, init_train_state,
+                                                make_train_step)
+
+    cfg = get_config("mobilellm_125m")
+    bundle = build(cfg, remat="none")
+    opt = AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=100,
+                      weight_decay=0.0)
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_train_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def trainer(ckpt):
+        state = init_train_state(
+            bundle, torch.Generator(device="cuda").manual_seed(SEED), opt,
+            compress_grads=True)
+        return Trainer(bundle, opt, SyntheticLM(cfg.vocab_size, 128, 8,
+                                                seed=SEED),
+                       state, make_train_step(bundle, opt,
+                                              compress_grads=True),
+                       ckpt, checkpoint_every=5)
+
+    reference = trainer(None)
+    want = [r.loss for r in reference.run(12)]
+    del reference
+    t = trainer(CheckpointManager(ckpt_dir))
+    crashed = []
+
+    def bomb(step):
+        if step == 8 and not crashed:
+            crashed.append(step)
+            raise InjectedFailure()
+
+    t0 = time.perf_counter()
+    rep = Supervisor(t, failure_hook=bomb).run(12)
+    wall = time.perf_counter() - t0
+    print(f"  (c) {cfg.name} ({cfg.dtype} compute, int8-compressed "
+          f"gradients with error feedback): restarts {rep.restarts}, "
+          f"completed steps {rep.completed_steps}, {wall:.2f} s with two "
+          f"checkpoints and one restore; uninterrupted losses "
+          + " ".join(f"{x:.4f}" for x in want))
+    if rep.restarts != 1 or rep.completed_steps != 12:
+        raise RuntimeError(f"restart: {rep}")
+    got = sorted(r.loss for r in t.records if r.step in (10, 11))
+    close(torch.tensor(got), torch.tensor(sorted(want[10:12])), 1e-5, 0,
+          "    steps 10-11 after the restart vs uninterrupted")
+    del t
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def families_train_card_vs_cpu(close) -> None:
+    """(d) Every architecture of the pool at reduced(), f32: one train step
+    on the card and one on the CPU from the same weights and batch; the
+    loss within 1e-4, the grad norm within 1e-4 relative."""
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.train_loop import make_train_step
+
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    for arch in ARCH_IDS:
+        cfg = get_config(arch).reduced()
+        on_card, p_card, on_cpu, p_cpu = _card_and_cpu(cfg, SEED)
+        batch = on_cpu.make_batch(SEED, ShapeSpec("t", 32, 2, "train"))
+        got = [make_train_step(b, opt)({"params": p, "opt": adamw.init(p)},
+                                       batch)[1]
+               for b, p in ((on_card, p_card), (on_cpu, p_cpu))]
+        close(got[0]["loss"].cpu(), got[1]["loss"], 0, 1e-4,
+              f"  (d) {cfg.name} ({cfg.family}) loss "
+              f"{float(got[1]['loss']):.5f}, card vs CPU")
+        close(got[0]["grad_norm"].cpu(), got[1]["grad_norm"], 1e-4, 0,
+              f"      grad norm {float(got[1]['grad_norm']):.5f}")
+
+
+def training_phase(card_line: str, close) -> None:
+    """Phase 9: (a) Granite-3-2B training at full width, (b) card against
+    CPU, (c) restart, (d) every family at reduced()."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"  {held / 1e9:.3f} GB allocated on the card at the phase's start"
+          f" ({card_line})")
+    if held >= 1e9:
+        live = sorted(((o.numel() * o.element_size(), tuple(o.shape), o.dtype)
+                       for o in gc.get_objects()
+                       if torch.is_tensor(o) and o.is_cuda), reverse=True)
+        print("  the largest tensors still on the card: "
+              + "; ".join(f"{tuple(s)} {d} {b / 1e6:.1f} MB"
+                          for b, s, d in live[:12]))
+        raise RuntimeError(f"{held / 1e9:.2f} GB still allocated before "
+                           f"training: an earlier phase holds card memory")
+    t0 = time.perf_counter()
+    granite_training(card_line)
+    print(f"  (a) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mobilellm_card_vs_cpu(close)
+    print(f"  (b) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mobilellm_restart(close)
+    print(f"  (c) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    families_train_card_vs_cpu(close)
+    print(f"  (d) took {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -1980,7 +2384,8 @@ def main() -> int:
         if wl.op == "attention":
             args = (*fa_ops.pad_operands(params, *x), params)
             kern, plain_fn = flash_attention_blocked, fa_plain
-            bound, by = bound_ms(args[:3], kern(*args),
+            lq, d = wl.dims[3], wl.dims[5]
+            bound, by = bound_ms(x[:3], kern(*args)[:, :lq, :d],
                                  attention_visible_ops(wl), wl.dtype)
         elif wl.op == "vmacc":
             # the unpadded entry, as the wrapper calls it
@@ -1996,7 +2401,8 @@ def main() -> int:
             kern = gemv_blocked
             plain_fn = lambda *a: gemv_plain.gemv_plain(  # noqa: E731
                 a[0], a[1], params.block[1])
-            bound, by = bound_ms((xp, wp), kern(*args), 2.0 * pn * pk,
+            n, k = wl.dims
+            bound, by = bound_ms(x[:2], kern(*args)[..., :n], 2.0 * n * k,
                                  wl.dtype)
         elif wl.op == "qmatmul":
             # the unpadded entry, as the wrapper calls it
@@ -2012,11 +2418,12 @@ def main() -> int:
             args = (xp, wp, params.block, params.order, params.accumulate)
             kern, plain_fn = matmul_blocked, (
                 lambda *a: mm_plain.matmul_plain(a[0], a[1], params.block[2]))
-            bound, by = bound_ms((xp, wp), kern(*args), 2.0 * pm * pn * pk,
-                                 wl.dtype)
+            m, n, k = wl.dims
+            bound, by = bound_ms(x[:2], kern(*args)[:m, :n],
+                                 2.0 * m * n * k, wl.dtype)
         tf32 = {}
         if wl.op == "matmul" and wl.dtype == "float32":
-            tf32["bound_3xtf32_ms"] = 3 * 2.0 * pm * pn * pk / PEAK_TF32 * 1e3
+            tf32["bound_3xtf32_ms"] = 3 * 2.0 * m * n * k / PEAK_TF32 * 1e3
         if wl.op == "attention" and wl.dtype == "float32":
             tf32["bound_3xtf32_ms"] = (3 * attention_visible_ops(wl)
                                        / PEAK_TF32 * 1e3)
@@ -2215,27 +2622,43 @@ def main() -> int:
           f"CudaRunner (batch 1 and 4, {SERVE_TRIALS} trials a shape, seed "
           f"{SEED}); Mamba2-780M, RecurrentGemma-2B and Whisper-tiny at "
           f"their published widths")
-    launches8, (moe_db, moe_reports) = families_phase(runner, card_line,
-                                                      close)
+    launches8, moe_tuned = families_phase(runner, card_line, close)
     print(f"launches on the families' paths: {launches8}")
     for r in rows:
         r["launches"] += launches6.get(r["name"], 0) \
             + launches7.get(r["name"], 0) + launches8.get(r["name"], 0)
-    # the gemv kernels at Qwen1.5-MoE's five decode shapes on the blocks
-    # its batch-1 tuner cycle chose; launches: the kernel's over every
-    # phase, as on its earlier row
+    # Qwen1.5-MoE's five decode shapes on the blocks its tuner cycles
+    # chose: the gemv kernels at batch 1, the bf16 matmul kernels at batch
+    # 4; launches: the kernel's over every phase, as on its earlier row
     total_launches = {r["name"]: r["launches"] for r in rows}
     moe_rows = []
-    for rep in moe_reports:
-        params_t = concretize(rep.workload, H100,
-                              moe_db.best(rep.workload, H100.name)[0])
-        name = "_gemv_kernel" if params_t.accumulate else \
-            "_gemv_noacc_kernel"
-        r = row(name, rep.workload, params_t,
-                f"Qwen1.5-MoE decode {'x'.join(map(str, rep.workload.dims))}"
-                f" (x{rep.count})")
-        r["launches"] = total_launches[name]
-        moe_rows.append(r)
+    for batch, (moe_db, moe_reports) in sorted(moe_tuned.items()):
+        for rep in moe_reports:
+            params_t = concretize(rep.workload, H100,
+                                  moe_db.best(rep.workload, H100.name)[0])
+            name = {("gemv", True): "_gemv_kernel",
+                    ("gemv", False): "_gemv_noacc_kernel",
+                    ("matmul", True): "_acc_kernel",
+                    ("matmul", False): "_noacc_kernel"}[
+                rep.workload.op, bool(params_t.accumulate)]
+            r = row(name, rep.workload, params_t,
+                    f"Qwen1.5-MoE decode batch {batch} {rep.workload.op}"
+                    f"({', '.join(map(str, rep.workload.dims))}) "
+                    f"(x{rep.count})")
+            r["launches"] = total_launches[name]
+            moe_rows.append(r)
+
+    # ---------------------------------------------------------------- 9 ----
+    phase(f"9. training (T1): Granite-3-2B unreduced through the train "
+          f"launcher's Trainer under a Supervisor ({TRAIN_STEPS} steps, "
+          f"batch 8 x seq 128, lr {TRAIN_LR}); card against CPU, restart and "
+          f"every family's step at reduced()")
+    t0 = time.perf_counter()
+    # the runner's operands of every workload timed so far (the MoE rows'
+    # 151936 x 2048 weights among them) are the card memory still held
+    runner.clear_inputs()
+    training_phase(card_line, close)
+    print(f"phase 9 took {time.perf_counter() - t0:.1f} s")
 
     print("rows " + json.dumps(rows))
     print(card_line)

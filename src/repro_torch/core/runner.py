@@ -185,6 +185,12 @@ class CudaRunner:
             self._inputs[key] = device_inputs(workload, "cuda")
         return self._inputs[key]
 
+    def clear_inputs(self) -> None:
+        """Drop the operands kept on the card for every workload measured
+        so far (a large model's LM head weight alone is 0.6 GB); the next
+        measurement of a workload makes its operands anew."""
+        self._inputs.clear()
+
     def _prepare(self, workload: Workload,
                  schedule: Schedule) -> Callable | None:
         """Build and run one candidate once; None if it is invalid or its

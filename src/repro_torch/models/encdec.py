@@ -88,8 +88,9 @@ def encode(params: T.Model, frames, cfg: ArchConfig):
     """frames (B, T_enc, D) precomputed stub embeddings -> (B, T_enc, D)."""
     dtype = T.DTYPES[cfg.dtype]
     x = frames.to(dtype) + params["enc_pos"][None].to(dtype)
+    layers = T.unbind_layers(params["enc_layers"])
     for i in range(cfg.n_encoder_layers):
-        lp = T.layer_slice(params["enc_layers"], i)
+        lp = layers[i]
         h = _ln(x, lp["ln1"], cfg.norm_eps)
         out, _ = _no_rope_sdpa(h, lp["attn"], cfg)  # bidirectional
         x = x + out
@@ -104,23 +105,28 @@ def _embed_dec(params, tokens, cfg: ArchConfig):
     return x + params["dec_pos"][:tokens.shape[1]][None].to(dtype)
 
 
+def _dec_layer(x, lp, enc, cfg: ArchConfig):
+    h = _ln(x, lp["ln1"], cfg.norm_eps)
+    out, _ = _no_rope_sdpa(h, lp["self_attn"], cfg, causal=True)
+    x = x + out
+    h = _ln(x, lp["ln2"], cfg.norm_eps)
+    out, _ = _no_rope_sdpa(h, lp["cross_attn"], cfg, kv=enc)
+    x = x + out
+    h = _ln(x, lp["ln3"], cfg.norm_eps)
+    return x + L.mlp(h, lp["mlp"], "gelu")
+
+
 def forward(params: T.Model, frames, tokens, cfg: ArchConfig, *,
             remat: str = "full"):
     """Teacher-forced decode over encoded frames -> logits (B, S, V).
-    ``remat`` is accepted for the reference's signature and ignored."""
-    del remat
+    ``remat``: each decoder layer's policy under autograd
+    (:func:`~repro_torch.models.transformer.remat_layer`); the encoder's
+    layers keep what autograd keeps, as the reference's do."""
     enc = encode(params, frames, cfg)
     x = _embed_dec(params, tokens, cfg)
-    for i in range(cfg.n_layers):
-        lp = T.layer_slice(params["dec_layers"], i)
-        h = _ln(x, lp["ln1"], cfg.norm_eps)
-        out, _ = _no_rope_sdpa(h, lp["self_attn"], cfg, causal=True)
-        x = x + out
-        h = _ln(x, lp["ln2"], cfg.norm_eps)
-        out, _ = _no_rope_sdpa(h, lp["cross_attn"], cfg, kv=enc)
-        x = x + out
-        h = _ln(x, lp["ln3"], cfg.norm_eps)
-        x = x + L.mlp(h, lp["mlp"], "gelu")
+    layer = T.remat_layer(_dec_layer, remat)
+    for lp in T.unbind_layers(params["dec_layers"]):
+        x = layer(x, lp, enc, cfg)
     x = _ln(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(x, params, cfg)
 
@@ -147,8 +153,9 @@ def prefill(params: T.Model, frames, tokens, cfg: ArchConfig, max_len: int):
     x = _embed_dec(params, tokens, cfg)
     pad = max_len - tokens.shape[1]
     parts = {"k": [], "v": [], "ck": [], "cv": []}
+    layers = T.unbind_layers(params["dec_layers"])
     for i in range(cfg.n_layers):
-        lp = T.layer_slice(params["dec_layers"], i)
+        lp = layers[i]
         h = _ln(x, lp["ln1"], cfg.norm_eps)
         out, (kk, vv) = _no_rope_sdpa(h, lp["self_attn"], cfg, causal=True)
         x = x + out
@@ -178,8 +185,9 @@ def decode_step(params: T.Model, cache, tokens, pos: int, cfg: ArchConfig):
     row = min(max(pos, 0), params["dec_pos"].shape[0] - 1)
     x = x + params["dec_pos"][row:row + 1][None].to(dtype)
     dev = x.device
+    layers = T.unbind_layers(params["dec_layers"])
     for i in range(cfg.n_layers):
-        lp = T.layer_slice(params["dec_layers"], i)
+        lp = layers[i]
         k_c, v_c = cache["k"][i], cache["v"][i]
         h = _ln(x, lp["ln1"], cfg.norm_eps)
         sa = lp["self_attn"]

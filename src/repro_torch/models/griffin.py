@@ -66,6 +66,12 @@ def _unit_counts(cfg: ArchConfig):
     return n_units, n_tail
 
 
+def _tail_layers(params, cfg: ArchConfig) -> list[dict]:
+    """The leftover recurrent layers' parameters (none for a whole number
+    of units)."""
+    return T.unbind_layers(params["tail"]) if _unit_counts(cfg)[1] else []
+
+
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device="cuda") -> T.Model:
     """Random parameters drawn from ``generator`` (on its device), placed
@@ -145,24 +151,28 @@ def _window(cfg: ArchConfig) -> int:
     return cfg.window_pattern[0] if cfg.window_pattern else -1
 
 
+def _unit(x, unit, cfg: ArchConfig, positions, window: int):
+    x = _rec_layer(x, unit["rec1"], cfg)
+    x = _rec_layer(x, unit["rec2"], cfg)
+    return _attn_layer(x, unit["attn"], cfg, positions, window)[0]
+
+
 def forward(params: T.Model, tokens, cfg: ArchConfig, *,
             remat: str = "full"):
-    """tokens (B, S) -> logits (B, S, V). ``remat`` is accepted for the
-    reference's signature and ignored (no backward pass runs yet)."""
-    del remat
+    """tokens (B, S) -> logits (B, S, V). ``remat``: the policy of each
+    unit and each tail layer under autograd
+    (:func:`~repro_torch.models.transformer.remat_layer`)."""
     x = L.embed(tokens, params, cfg, T.DTYPES[cfg.dtype])
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     window = _window(cfg)
-    n_units, n_tail = _unit_counts(cfg)
-    for u in range(n_units):
-        unit = T.layer_slice(params["units"], u)
-        x = _rec_layer(x, unit["rec1"], cfg)
-        x = _rec_layer(x, unit["rec2"], cfg)
-        x, _ = _attn_layer(x, unit["attn"], cfg, positions, window)
-    for t in range(n_tail):
-        x = _rec_layer(x, T.layer_slice(params["tail"], t), cfg)
+    unit = T.remat_layer(_unit, remat)
+    rec_layer = T.remat_layer(_rec_layer, remat)
+    for unit_p in T.unbind_layers(params["units"]):
+        x = unit(x, unit_p, cfg, positions, window)
+    for lp in _tail_layers(params, cfg):
+        x = rec_layer(x, lp, cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(x, params, cfg)
 
@@ -214,9 +224,7 @@ def decode_step(params: T.Model, cache, tokens, pos: int, cfg: ArchConfig):
     cache are written into ``cache`` in place."""
     x = L.embed(tokens, params, cfg, T.DTYPES[cfg.dtype])  # (B,1,D)
     window = _window(cfg)
-    n_units, n_tail = _unit_counts(cfg)
-    for u in range(n_units):
-        unit = T.layer_slice(params["units"], u)
+    for u, unit in enumerate(T.unbind_layers(params["units"])):
         h = x[:, 0]
         h, cache["h1"][u], cache["c1"][u] = _rec_decode(
             h, unit["rec1"], cfg, cache["h1"][u], cache["c1"][u])
@@ -231,10 +239,9 @@ def decode_step(params: T.Model, cache, tokens, pos: int, cfg: ArchConfig):
         h = h + out
         hn = L.rms_norm(h, unit["attn"]["ln2"], cfg.norm_eps)
         x = h + L.mlp(hn, unit["attn"]["mlp"], cfg.act)
-    for t in range(n_tail):
+    for t, lp in enumerate(_tail_layers(params, cfg)):
         h, cache["ht"][t], cache["ct"][t] = _rec_decode(
-            x[:, 0], T.layer_slice(params["tail"], t), cfg, cache["ht"][t],
-            cache["ct"][t])
+            x[:, 0], lp, cfg, cache["ht"][t], cache["ct"][t])
         x = h[:, None]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(x, params, cfg)[:, 0], cache
@@ -251,7 +258,6 @@ def prefill(params: T.Model, tokens, cfg: ArchConfig, max_len: int):
                              device=x.device).expand(b, s)
     window = _window(cfg)
     kc = cfg.conv_kernel - 1
-    n_units, n_tail = _unit_counts(cfg)
 
     def rec_seq(carry, p):
         h = L.rms_norm(carry, p["ln1"], cfg.norm_eps)
@@ -263,8 +269,7 @@ def prefill(params: T.Model, tokens, cfg: ArchConfig, max_len: int):
         return out + L.mlp(hh, p["mlp"], cfg.act), h_last, pre_conv[:, -kc:]
 
     parts = {name: [] for name in ("k", "v", "h1", "c1", "h2", "c2")}
-    for u in range(n_units):
-        unit = T.layer_slice(params["units"], u)
+    for unit in T.unbind_layers(params["units"]):
         x, h1, c1 = rec_seq(x, unit["rec1"])
         x, h2, c2 = rec_seq(x, unit["rec2"])
         x, (kk, vv) = _attn_layer(x, unit["attn"], cfg, positions, window)
@@ -272,10 +277,11 @@ def prefill(params: T.Model, tokens, cfg: ArchConfig, max_len: int):
                             ("v", L.ring_store(vv.to(dtype), cfg, max_len)),
                             ("h1", h1), ("c1", c1), ("h2", h2), ("c2", c2)):
             parts[name].append(value)
-    if n_tail:
+    tail = _tail_layers(params, cfg)
+    if tail:
         parts.update(ht=[], ct=[])
-        for t in range(n_tail):
-            x, ht, ct = rec_seq(x, T.layer_slice(params["tail"], t))
+        for lp in tail:
+            x, ht, ct = rec_seq(x, lp)
             parts["ht"].append(ht)
             parts["ct"].append(ct)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -50,6 +50,8 @@ class ModelBundle:
 
 
 def _param_device(params) -> torch.device:
+    if isinstance(params, dict):  # a cast_params tree
+        return transformer.tree_tensors(params)[0].device
     return next(params.parameters()).device
 
 
@@ -67,8 +69,11 @@ def _family(cfg: ArchConfig):
 
 def build(cfg: ArchConfig, remat: str = "full",
           device="cuda") -> ModelBundle:
-    """The bundle of ``cfg``'s family. ``remat`` is accepted for the
-    reference's signature and ignored (no backward pass runs yet)."""
+    """The bundle of ``cfg``'s family. ``remat`` is each layer body's
+    rematerialization policy under autograd: ``"full"``, ``"dots"`` or
+    ``"none"`` (:func:`~repro_torch.models.transformer.remat_layer`).
+    ``params`` may also be a nested dict of tensors under the same names
+    (:func:`~repro_torch.models.transformer.cast_params`)."""
     fam = cfg.family
     mod = _family(cfg)
     device = torch.device(device)

@@ -10,8 +10,10 @@ qwen2-moe); the padding experts are never routed to.
 The routing is the reference's decision for decision: ``lax.top_k``'s
 lower-index-first order on ties, the stable sort that gives earlier tokens
 capacity priority, the left-sided ``searchsorted`` and the dropped-token
-slot ``e·cap``. The reference's custom-VJP dispatch/combine pairs serve
-training; their forward is what runs here.
+slot ``e·cap``. The reference writes the backward of its dispatch and
+combine by hand (a ``custom_vjp`` pair); here autograd derives the same
+ones: the scatter's is a gather at the same slots (zero for a dropped
+token, whose row is sliced off), the gather's a scatter-add.
 """
 
 from __future__ import annotations
@@ -161,14 +163,15 @@ def _positions(tokens, x):
 
 def forward(params: T.Model, tokens, cfg: ArchConfig, *,
             remat: str = "full"):
-    """tokens (B, S) -> logits (B, S, V). ``remat`` is accepted for the
-    reference's signature and ignored (no backward pass runs yet)."""
-    del remat
+    """tokens (B, S) -> logits (B, S, V). ``remat``: each layer's policy
+    under autograd (:func:`~repro_torch.models.transformer.remat_layer`)."""
     x = L.embed(tokens, params, cfg, T.DTYPES[cfg.dtype])
     positions = _positions(tokens, x)
+    block = T.remat_layer(_block, remat)
+    layers = T.unbind_layers(params["layers"])
     for i in range(cfg.n_layers):
-        x = _block(x, T.layer_slice(params["layers"], i),
-                   cfg.window_for_layer(i), cfg, positions)
+        x = block(x, layers[i],
+                  cfg.window_for_layer(i), cfg, positions)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(x, params, cfg)
 
@@ -180,8 +183,9 @@ init_cache = T.init_cache
 def decode_step(params: T.Model, cache, tokens, pos: int, cfg: ArchConfig):
     """One-token decode; the stacked KV cache is written in place."""
     x = L.embed(tokens, params, cfg, T.DTYPES[cfg.dtype])
+    layers = T.unbind_layers(params["layers"])
     for i in range(cfg.n_layers):
-        lp = T.layer_slice(params["layers"], i)
+        lp = layers[i]
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         attn_out, _, _ = L.attention_decode(h, lp["attn"], cfg,
                                             cache["k"][i], cache["v"][i],
@@ -202,8 +206,9 @@ def prefill(params: T.Model, tokens, cfg: ArchConfig, max_len: int):
     positions = _positions(tokens, x)
     pad = max_len - tokens.shape[1]
     ks, vs = [], []
+    layers = T.unbind_layers(params["layers"])
     for i in range(cfg.n_layers):
-        lp = T.layer_slice(params["layers"], i)
+        lp = layers[i]
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         attn_out, (kk, vv) = L.attention(h, lp["attn"], cfg, positions,
                                          cfg.window_for_layer(i))

@@ -167,15 +167,18 @@ def ssm_block(x, lp, cfg: ArchConfig):
     return _ssm_seq(x, lp, cfg, round_dt=True)[0]
 
 
+def _layer(x, lp, cfg: ArchConfig):
+    return x + ssm_block(L.rms_norm(x, lp["ln"], cfg.norm_eps), lp, cfg)
+
+
 def forward(params: T.Model, tokens, cfg: ArchConfig, *,
             remat: str = "full"):
-    """tokens (B, S) -> logits (B, S, V). ``remat`` is accepted for the
-    reference's signature and ignored (no backward pass runs yet)."""
-    del remat
+    """tokens (B, S) -> logits (B, S, V). ``remat``: each layer's policy
+    under autograd (:func:`~repro_torch.models.transformer.remat_layer`)."""
     x = L.embed(tokens, params, cfg, T.DTYPES[cfg.dtype])
-    for i in range(cfg.n_layers):
-        lp = T.layer_slice(params["layers"], i)
-        x = x + ssm_block(L.rms_norm(x, lp["ln"], cfg.norm_eps), lp, cfg)
+    layer = T.remat_layer(_layer, remat)
+    for lp in T.unbind_layers(params["layers"]):
+        x = layer(x, lp, cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(x, params, cfg)
 
@@ -231,8 +234,9 @@ def decode_step(params: T.Model, cache, tokens, pos: int, cfg: ArchConfig):
     history."""
     del pos
     x = L.embed(tokens, params, cfg, T.DTYPES[cfg.dtype])[:, 0]  # (B, D)
+    layers = T.unbind_layers(params["layers"])
     for i in range(cfg.n_layers):
-        lp = T.layer_slice(params["layers"], i)
+        lp = layers[i]
         h = L.rms_norm(x, lp["ln"], cfg.norm_eps)
         out, cache["conv"][i], cache["state"][i] = _ssm_block_decode(
             h, lp, cfg, cache["conv"][i], cache["state"][i])
@@ -248,8 +252,9 @@ def prefill(params: T.Model, tokens, cfg: ArchConfig, max_len: int):
     del max_len
     x = L.embed(tokens, params, cfg, T.DTYPES[cfg.dtype])
     convs, states = [], []
+    layers = T.unbind_layers(params["layers"])
     for i in range(cfg.n_layers):
-        lp = T.layer_slice(params["layers"], i)
+        lp = layers[i]
         out, conv_tail, final = _ssm_seq(
             L.rms_norm(x, lp["ln"], cfg.norm_eps), lp, cfg, round_dt=False)
         x = x + out

@@ -8,13 +8,18 @@ the checkpoint layout and :class:`Model`'s ``state_dict`` line up one
 to one. The reference's ``lax.scan`` over layers is a loop over the layer
 index here; per-layer attention windows come from the config, so one loop
 expresses full, sliding-window and local:global interleaved patterns
-(gemma3's 5:1, danube's SWA).
+(gemma3's 5:1, danube's SWA). Under autograd each layer body runs under the
+reference's rematerialization policy (:func:`remat_layer`).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -40,15 +45,79 @@ class ParamTree(nn.Module):
         return getattr(self, name)
 
 
-def layer_slice(tree: ParamTree, i: int) -> dict:
+def _entries(tree) -> list:
+    """(name, child) pairs of a tree node: a ParamTree's submodules and
+    parameters, or a dict's items."""
+    if isinstance(tree, ParamTree):
+        return [*tree.named_children(), *tree.named_parameters(recurse=False)]
+    return list(tree.items())
+
+
+def _is_node(child) -> bool:
+    return isinstance(child, (ParamTree, dict))
+
+
+def tree_tensors(tree) -> list:
+    """Every tensor of a ParamTree or a nested dict of tensors."""
+    return [t for _, child in _entries(tree)
+            for t in (tree_tensors(child) if _is_node(child) else (child,))]
+
+
+def cast_params(params, dtype) -> dict:
+    """``params`` with every f32 tensor cast to ``dtype``, as a nested dict
+    that the families read as they read a :class:`Model`; gradients flow
+    back to the f32 masters through the casts."""
+    if _is_node(params):
+        return {name: cast_params(child, dtype)
+                for name, child in _entries(params)}
+    return params.to(dtype) if params.dtype == torch.float32 else params
+
+
+def layer_slice(tree, i: int) -> dict:
     """Layer ``i``'s parameters as a nested dict of views into the stacked
-    ``(L, ...)`` tensors of ``tree``."""
-    out = {}
-    for name, child in tree.named_children():
-        out[name] = layer_slice(child, i)
-    for name, param in tree.named_parameters(recurse=False):
-        out[name] = param[i]
-    return out
+    ``(L, ...)`` tensors of ``tree`` (a ParamTree or a nested dict)."""
+    return {name: layer_slice(child, i) if _is_node(child) else child[i]
+            for name, child in _entries(tree)}
+
+
+def unbind_layers(tree) -> list[dict]:
+    """Every layer's :func:`layer_slice`, from one ``unbind(0)`` of each
+    stack. A forward takes its stacks apart with this once: ``unbind``'s
+    backward is one ``stack`` of the layers' gradients, where ``param[i]``
+    per layer gives each layer a ``select_backward`` that writes a zero
+    tensor the size of the whole stack."""
+    parts = {name: unbind_layers(child) if _is_node(child) else child.unbind(0)
+             for name, child in _entries(tree)}
+    n = len(next(iter(parts.values())))
+    return [{name: part[i] for name, part in parts.items()}
+            for i in range(n)]
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Save the outputs of matmuls without batch dims (``x @ w``, which
+    autograd sees as ``mm``); recompute the rest, batched products
+    (``bmm``: attention scores, experts) among them."""
+    del ctx, args, kwargs
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_layer(body, remat: str):
+    """``body`` (a layer) under the reference's rematerialization policy:
+    ``"full"`` keeps only its inputs for the backward and recomputes the
+    rest (``nothing_saveable``), ``"dots"`` keeps its matmul outputs too
+    (``dots_with_no_batch_dims_saveable``), ``"none"`` keeps what autograd
+    keeps. Without grad it is ``body``."""
+    if remat not in ("full", "dots", "none"):
+        raise ValueError(f"unknown remat {remat!r}: full, dots or none")
+    if remat == "none" or not torch.is_grad_enabled():
+        return body
+    kwargs = {"use_reentrant": False}
+    if remat == "dots":
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, body, **kwargs)
 
 
 class Model(ParamTree):
@@ -115,14 +184,14 @@ def forward(params: Model, tokens, cfg: ArchConfig, *,
 
     ``inputs_embeds`` (B, N, D) replaces the first N token embeddings — the
     VLM stub frontend injects precomputed patch embeddings this way.
-    ``remat`` is accepted for the reference's signature and ignored: no
-    backward pass runs in the port yet.
+    ``remat``: each layer's policy under autograd (:func:`remat_layer`).
     """
-    del remat
     x, positions = _embed_inputs(params, tokens, cfg, inputs_embeds)
+    block = remat_layer(_block, remat)
+    layers = unbind_layers(params["layers"])
     for i in range(cfg.n_layers):
-        x = _block(x, layer_slice(params["layers"], i),
-                   cfg.window_for_layer(i), cfg, positions, mrope_positions)
+        x = block(x, layers[i],
+                  cfg.window_for_layer(i), cfg, positions, mrope_positions)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(x, params, cfg)
 
@@ -159,8 +228,9 @@ def decode_step(params: Model, cache, tokens, pos: int,
     Returns (logits (B, V), cache)."""
     x = L.embed(tokens, params, cfg, DTYPES[cfg.dtype])
     uniform_w = _uniform_window(cfg)
+    layers = unbind_layers(params["layers"])
     for i in range(cfg.n_layers):
-        lp = layer_slice(params["layers"], i)
+        lp = layers[i]
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         attn_out, _, _ = L.attention_decode(
             h, lp["attn"], cfg, cache["k"][i], cache["v"][i], pos,
@@ -181,8 +251,9 @@ def prefill(params: Model, tokens, cfg: ArchConfig, max_len: int, *,
     x, positions = _embed_inputs(params, tokens, cfg, inputs_embeds)
     dtype = DTYPES[cfg.dtype]
     cache = init_cache(cfg, tokens.shape[0], max_len, device=x.device)
+    layers = unbind_layers(params["layers"])
     for i in range(cfg.n_layers):
-        lp = layer_slice(params["layers"], i)
+        lp = layers[i]
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         attn_out, (k, v) = L.attention(h, lp["attn"], cfg, positions,
                                        cfg.window_for_layer(i),

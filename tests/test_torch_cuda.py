@@ -332,6 +332,27 @@ def test_cuda_runner_invalid_block_is_inf(cuda):
     assert runner.run(wl, bad) == float("inf")
 
 
+def test_cuda_runner_clear_inputs_frees_the_operands(cuda):
+    """The runner keeps each workload's operands on the card until
+    ``clear_inputs``; after it they are made anew, equal, and the card
+    memory they held is free."""
+    wl = W.matmul(1024, 4096, 2048, "bfloat16")
+    runner = CudaRunner(H100, repeats=1)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    first = runner.inputs(wl)
+    assert runner.inputs(wl) is first
+    held = torch.cuda.memory_allocated() - before
+    assert held >= sum(t.numel() * t.element_size() for t in first)
+    copies = [t.clone() for t in first]
+    del first
+    runner.clear_inputs()
+    assert torch.cuda.memory_allocated() - before == \
+        sum(t.numel() * t.element_size() for t in copies)
+    again = runner.inputs(wl)
+    assert all(torch.equal(a, b) for a, b in zip(again, copies))
+
+
 # ------------------------------------------------------- gemv and vmacc ----
 
 def _vector_operands(n, k, dtype, device, seed=0):

@@ -1,8 +1,9 @@
-"""The port stands alone: importing every module of ``src/repro_torch`` and
-every module ``chip_smoke.py`` and ``examples/quickstart_torch.py`` name in
-an import (inside ``main`` too) loads neither ``jax`` nor any module of the
-JAX package ``repro``. Checked in a fresh interpreter, so that what other
-tests imported does not count."""
+"""The port stands alone: importing every module of ``src/repro_torch`` (the
+training path's among them) and every module ``chip_smoke.py`` and
+``examples/quickstart_torch.py`` name in an import (inside ``main`` too)
+loads neither ``jax`` nor any module of the JAX package ``repro``. Checked
+in a fresh interpreter, so that what other tests imported does not
+count."""
 
 import os
 import subprocess
@@ -31,10 +32,16 @@ for node in (n for tree in trees for n in ast.walk(tree)):
         for alias in node.names:
             if not hasattr(base, alias.name):  # a submodule
                 importlib.import_module(f"{node.module}.{alias.name}")
-# every model family's module among them
+# every model family's module among them, and the training path's
 missing = [m for m in ("repro_torch.models.moe", "repro_torch.models.ssm",
                        "repro_torch.models.griffin",
-                       "repro_torch.models.encdec")
+                       "repro_torch.models.encdec",
+                       "repro_torch.data.pipeline",
+                       "repro_torch.optim.adamw",
+                       "repro_torch.optim.compression",
+                       "repro_torch.runtime.train_loop",
+                       "repro_torch.runtime.supervisor",
+                       "repro_torch.launch.train")
            if m not in sys.modules]
 print("missing", missing)
 bad = sorted(m for m in sys.modules

@@ -33,6 +33,7 @@ torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from _torch_jax import fast_jit  # noqa: E402
 from repro import configs as ref_configs  # noqa: E402
 from repro.models import moe as RM  # noqa: E402
 from repro.models.model_zoo import build as ref_build  # noqa: E402
@@ -77,9 +78,9 @@ def _models(arch, dtype="float32"):
     rb = ref_build(ref_cfg, remat="none")
     rp = _ref_params(arch)
     rb = dataclasses.replace(
-        rb, forward=jax.jit(rb.forward),
-        prefill_fn=jax.jit(rb.prefill_fn, static_argnums=2),
-        decode_fn=jax.jit(rb.decode_fn))
+        rb, forward=fast_jit(rb.forward),
+        prefill_fn=fast_jit(rb.prefill_fn, static_argnums=2),
+        decode_fn=fast_jit(rb.decode_fn))
     port = build(cfg, remat="none", device="cpu")
     params = from_numpy_params(cfg, jax.tree.map(np.asarray, rp), "cpu")
     return rb, rp, port, params

@@ -30,6 +30,7 @@ torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from _torch_jax import fast_jit  # noqa: E402
 from repro import configs as ref_configs  # noqa: E402
 from repro.models import layers as RL  # noqa: E402
 from repro.models import transformer as RT  # noqa: E402
@@ -70,7 +71,7 @@ def _jit(fn):
     def run(*args):
         static = [i for i, a in enumerate(args)
                   if not isinstance(a, (np.ndarray, jax.Array, dict))]
-        return jax.jit(fn, static_argnums=static)(*args)
+        return fast_jit(fn, static_argnums=static)(*args)
     return run
 
 
@@ -84,9 +85,9 @@ def _models(arch):
     rp = rb.init(jax.random.key(0))
     # jitted: an eager lax.scan compiles its body again at every call
     rb = dataclasses.replace(
-        rb, forward=jax.jit(rb.forward), loss_fn=jax.jit(rb.loss_fn),
-        prefill_fn=jax.jit(rb.prefill_fn, static_argnums=2),
-        decode_fn=jax.jit(rb.decode_fn))
+        rb, forward=fast_jit(rb.forward), loss_fn=fast_jit(rb.loss_fn),
+        prefill_fn=fast_jit(rb.prefill_fn, static_argnums=2),
+        decode_fn=fast_jit(rb.decode_fn))
     port = build(cfg, remat="none", device="cpu")
     params = from_numpy_params(cfg, jax.tree.map(np.asarray, rp), "cpu")
     return rb, rp, port, params
