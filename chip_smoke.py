@@ -66,7 +66,12 @@ widths, unreduced:
   masters, bf16 compute) through the train launcher's ``Trainer`` under a
   ``Supervisor``: autograd through every layer, AdamW in place, the
   launcher's batch 8 at sequence 128 of ``SyntheticLM``. No kernel of the
-  port runs in it: the reference's training path holds no Pallas kernel.
+  port runs in it: the reference's training path holds no Pallas kernel;
+
+- sharded training (phase 10, T1-mesh): the same model, seed, data and
+  steps through the launcher's ``--mesh host``: ``jit_train_step`` on a
+  (1, 1) ("data", "model") NCCL mesh, the state and batches as DTensors,
+  the layers' activation-sharding hooks set (no kernel of the port either).
 
 The int8 qmatmul and the vmacc kernels take their operands at the real
 size (``qmatmul_ragged``, ``vmacc_ragged``: the wrappers pad nothing);
@@ -216,7 +221,17 @@ Phases (any failure exits nonzero and prints no result line):
      5 under build/ and a failure injected at step 8: one restart, 12
      steps, steps 10-11's losses an uninterrupted run's at rtol 1e-5; (d)
      every architecture at reduced(), f32, one step on the card and on the
-     CPU: loss within 1e-4, grad norm within 1e-4 relative.
+     CPU: loss within 1e-4, grad norm within 1e-4 relative;
+  10. sharded training, with under 1 GB of the card allocated at its
+     start: Granite-3-2B unreduced through the launcher's ``--mesh host``
+     (``train_mesh``, ``make_trainer`` on the mesh, a ``Supervisor``), 20
+     steps as phase 9's (a); the mesh must be (1, 1) ("data", "model") on
+     NCCL and the parameters DTensors; each loss within 1e-5 of phase 9's
+     at the same step; the step ms (median of steps 3-19), tokens/s, peak
+     memory, one step profiled (card ms, idle share, operations); after
+     it no process group may remain; then ``--mesh production`` must fail
+     in ``make_production_mesh`` for lack of ranks (256 wanted, 1 here),
+     again leaving no process group.
 The last line is {"ok": true, "device": {...}}.
 
 Run:  python3 chip_smoke.py      (needs one CUDA card and nvcc)
@@ -1274,12 +1289,13 @@ def profile_train_step(trainer, label: str) -> dict:
             "wall_ms": wall * 1e3, "opt_ms": opt_ms}
 
 
-def granite_training(card_line: str) -> None:
+def granite_training(card_line: str) -> list[float]:
     """(a) Granite-3-2B unreduced: TRAIN_STEPS steps through a Trainer
     under a Supervisor, finite and falling; step time, tokens/s, model
     TFLOP/s against the bf16 peak, peak memory against the reckoning; one
     step profiled with the layers taken apart by unbind and one with the
-    parent's per-layer indexing; one step with remat="full"."""
+    parent's per-layer indexing; one step with remat="full". Returns the
+    TRAIN_STEPS losses."""
     import statistics
     from unittest import mock
 
@@ -1375,6 +1391,7 @@ def granite_training(card_line: str) -> None:
           f"step {full_ms:.2f} ms (its first step {first_ms:.2f} ms)")
     del trainer
     torch.cuda.empty_cache()
+    return losses
 
 
 def _card_and_cpu(cfg, seed: int):
@@ -1529,9 +1546,9 @@ def families_train_card_vs_cpu(close) -> None:
               f"      grad norm {float(got[1]['grad_norm']):.5f}")
 
 
-def training_phase(card_line: str, close) -> None:
-    """Phase 9: (a) Granite-3-2B training at full width, (b) card against
-    CPU, (c) restart, (d) every family at reduced()."""
+def require_free_card(card_line: str) -> None:
+    """Fail unless under 1 GB of the card is allocated (after a collect),
+    naming the largest tensors still there."""
     import gc
 
     import torch
@@ -1550,8 +1567,15 @@ def training_phase(card_line: str, close) -> None:
                           for b, s, d in live[:12]))
         raise RuntimeError(f"{held / 1e9:.2f} GB still allocated before "
                            f"training: an earlier phase holds card memory")
+
+
+def training_phase(card_line: str, close) -> list[float]:
+    """Phase 9: (a) Granite-3-2B training at full width, (b) card against
+    CPU, (c) restart, (d) every family at reduced(). Returns (a)'s
+    losses."""
+    require_free_card(card_line)
     t0 = time.perf_counter()
-    granite_training(card_line)
+    losses = granite_training(card_line)
     print(f"  (a) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     mobilellm_card_vs_cpu(close)
@@ -1562,6 +1586,87 @@ def training_phase(card_line: str, close) -> None:
     t0 = time.perf_counter()
     families_train_card_vs_cpu(close)
     print(f"  (d) took {time.perf_counter() - t0:.1f} s")
+    return losses
+
+
+# Phase 10: sharded training (T1-mesh). Phase 9's (a) through the
+# launcher's --mesh host: jit_train_step on the (1, 1) NCCL mesh.
+PRODUCTION_REFUSAL = "needs 256 ranks; this world has 1"
+
+
+def sharded_training_phase(card_line: str, unsharded: list[float]) -> None:
+    """Phase 10: Granite-3-2B unreduced, TRAIN_STEPS steps through the
+    launcher's mesh (``train_mesh``, ``make_trainer`` on it, a
+    ``Supervisor``), each loss within 1e-5 of phase 9's ``unsharded``; the
+    step, tokens/s, peak memory and one profiled step; no process group
+    after it; then ``--mesh production`` refused for lack of ranks."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime.supervisor import Supervisor
+
+    require_free_card(card_line)
+    argv = ["--arch", "granite_3_2b", "--no-reduced", "--steps",
+            str(TRAIN_STEPS), "--lr", str(TRAIN_LR), "--seed", str(SEED)]
+    args = launch_train.parse_args(argv + ["--mesh", "host"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with launch_train.train_mesh(args) as mesh:
+        if (tuple(mesh.shape), mesh.mesh_dim_names,
+                dist.get_backend()) != ((1, 1), ("data", "model"), "nccl"):
+            raise RuntimeError(f"--mesh host built {mesh} on "
+                               f"{dist.get_backend()}")
+        trainer = launch_train.make_trainer(args, mesh)
+        torch.cuda.synchronize()
+        params = list(trainer.state["params"].parameters())
+        if not all(isinstance(p, DTensor) for p in params):
+            raise RuntimeError("the sharded state holds plain tensors")
+        n = sum(p.numel() for p in params)
+        tokens = args.batch * args.seq_len
+        print(f"  {n} parameters drawn and laid out on {mesh} "
+              f"({dist.get_backend()}) in {time.perf_counter() - t0:.2f} s; "
+              f"placements of layers.attn.wq: "
+              f"{trainer.state['params'].layers.attn.wq.placements}")
+        report = Supervisor(trainer).run(TRAIN_STEPS)
+        recs = trainer.records
+        losses = [r.loss for r in recs]
+        print("  losses " + " ".join(f"{x:.4f}" for x in losses))
+        if report.completed_steps != TRAIN_STEPS or report.restarts:
+            raise RuntimeError(f"sharded training: {report}")
+        diff = max(abs(a - b) for a, b in zip(losses, unsharded, strict=True))
+        print(f"  largest loss difference from phase 9's unsharded steps "
+              f"{diff:.3e} (must be within 1e-5)")
+        if not diff <= 1e-5:
+            raise RuntimeError(f"sharded losses differ from phase 9's by "
+                               f"{diff}")
+        step_s = statistics.median(r.wall_s for r in recs[3:TRAIN_STEPS])
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  first step {recs[0].wall_s * 1e3:.2f} ms (DTensor's "
+              f"sharding propagation is cached from the second); step "
+              f"{step_s * 1e3:.2f} ms (median of steps 3-19), "
+              f"{tokens / step_s:.0f} tokens/s; peak memory "
+              f"{peak / 1e9:.2f} GB ({card_line})")
+        profile_train_step(trainer, "one sharded step")
+        del trainer, params
+    if dist.is_initialized():
+        raise RuntimeError("the launcher's process group outlived its run")
+    print("  after the run: no process group, the hooks cleared "
+          f"({launch_train.model_layers._BATCH_AXES is None})")
+    try:
+        launch_train.main(argv + ["--mesh", "production"])
+    except RuntimeError as e:
+        if PRODUCTION_REFUSAL not in str(e):
+            raise
+        print(f"  --mesh production on this card: RuntimeError: {e}")
+    else:
+        raise RuntimeError("--mesh production ran on one card")
+    if dist.is_initialized():
+        raise RuntimeError("--mesh production left a process group")
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2657,8 +2762,17 @@ def main() -> int:
     # the runner's operands of every workload timed so far (the MoE rows'
     # 151936 x 2048 weights among them) are the card memory still held
     runner.clear_inputs()
-    training_phase(card_line, close)
+    unsharded = training_phase(card_line, close)
     print(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+
+    # --------------------------------------------------------------- 10 ----
+    phase(f"10. sharded training (T1-mesh): Granite-3-2B unreduced through "
+          f"the train launcher's --mesh host (jit_train_step on a (1, 1) "
+          f"NCCL mesh, {TRAIN_STEPS} steps as phase 9's); --mesh production "
+          f"refused on one card")
+    t0 = time.perf_counter()
+    sharded_training_phase(card_line, unsharded)
+    print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
     print("rows " + json.dumps(rows))
     print(card_line)

@@ -1,4 +1,4 @@
-"""Atomic checkpointing, in the JAX package's on-disk layout.
+"""Atomic, elastic checkpointing, in the JAX package's on-disk layout.
 
 Layout: ``<dir>/step_<n>/`` holding one ``.npy`` per leaf, named by its
 ``__``-joined path, plus ``manifest.json`` (step, shapes, dtypes, extra
@@ -9,6 +9,13 @@ tensors, numpy arrays or scalars; an ``nn.Module`` in it stands for its
 their files: a checkpoint written by either package restores in the other.
 Writes go to a temp directory and are ``os.replace``d into place — a crash
 mid-save never corrupts the latest checkpoint.
+
+Sharded states (DTensor leaves) are written as full arrays: every rank
+gathers each leaf, rank 0 writes (synchronously, the other ranks waiting
+for it at a barrier). Elastic restore: leaves are loaded host-side and
+laid out by the *target* shardings (``restore(shardings=)``), so a
+checkpoint written on mesh A restores onto mesh B (another rank count or
+axis sizes), or onto one device without them.
 
 ``async_save`` moves serialization off the calling thread (the host copy
 is made synchronously; the disk write overlaps what follows).
@@ -26,6 +33,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 _SEP = "__"
@@ -51,7 +59,15 @@ def _children(node):
     return None
 
 
+def _is_dtensor(leaf) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(leaf, DTensor)
+
+
 def _host_copy(leaf) -> np.ndarray:
+    if _is_dtensor(leaf):  # every rank takes part in the gather
+        leaf = leaf.full_tensor()
     if torch.is_tensor(leaf):
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf)
@@ -68,21 +84,43 @@ def _flatten(tree, prefix: tuple = ()) -> dict[str, np.ndarray]:
 
 
 def _unflatten(template, flat: dict[str, np.ndarray], device,
-               prefix: tuple = ()):
+               shardings=None, prefix: tuple = ()):
+    """``template``'s structure with its leaves from ``flat``: each laid out
+    by its entry of ``shardings`` (a tree of the template's structure,
+    keyed like a module's nested parameter names) where given, else a
+    tensor on ``device``."""
+    def leaf(path):
+        x = torch.from_numpy(flat[_SEP.join(path)])
+        if shardings is None:
+            return x.to(device)
+        s = shardings
+        for key in path[len(prefix):]:
+            s = s[key]
+        return s.place(x.to(s.mesh.device_type))
+
     if isinstance(template, nn.Module):
-        template.to(device)
-        state = {key: torch.from_numpy(flat[_SEP.join(prefix
-                                                      + tuple(key.split(".")))])
-                 for key in template.state_dict()}
-        template.load_state_dict(state)
+        keys = list(template.state_dict())
+        if shardings is None:
+            template.to(device)
+            template.load_state_dict({k: torch.from_numpy(
+                flat[_SEP.join(prefix + tuple(k.split(".")))]) for k in keys})
+        else:  # new DTensor parameters on the target mesh
+            template.load_state_dict(
+                {k: leaf(prefix + tuple(k.split("."))) for k in keys},
+                assign=True)
         return template
     if isinstance(template, dict):
-        return {k: _unflatten(v, flat, device, prefix + (str(k),))
+        return {k: _unflatten(v, flat, device,
+                              None if shardings is None else shardings[k],
+                              prefix + (str(k),))
                 for k, v in template.items()}
     if isinstance(template, (list, tuple)):
-        return type(template)(_unflatten(v, flat, device, prefix + (str(i),))
-                              for i, v in enumerate(template))
-    return torch.from_numpy(flat[_SEP.join(prefix)]).to(device)
+        return type(template)(
+            _unflatten(v, flat, device,
+                       None if shardings is None else shardings[i],
+                       prefix + (str(i),))
+            for i, v in enumerate(template))
+    return leaf(prefix)
 
 
 class CheckpointManager:
@@ -103,7 +141,13 @@ class CheckpointManager:
             "leaves": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
                        for k, v in flat.items()},
         }
-        if async_save:
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            # several ranks: rank 0 writes while the others wait, so that a
+            # restore on any rank finds the checkpoint
+            if dist.get_rank() == 0:
+                self._write(step, flat, manifest)
+            dist.barrier()
+        elif async_save:
             self.wait()
             self._thread = threading.Thread(
                 target=self._write, args=(step, flat, manifest), daemon=True)
@@ -152,11 +196,15 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template, step: int | None = None,
-                device="cuda") -> tuple[int, Any, dict]:
-        """Load into the structure of ``template``, every leaf a tensor on
-        ``device``; a module in the template is moved there and loads its
-        state in place."""
+    def restore(self, template, step: int | None = None, device="cuda",
+                shardings=None) -> tuple[int, Any, dict]:
+        """Load into the structure of ``template``. ``shardings`` (the same
+        tree structure, a ``NamedSharding`` at each leaf) lays each leaf
+        out on its mesh: the elastic path, onto the current mesh whatever
+        mesh wrote the checkpoint; a module in the template gets new
+        DTensor parameters. Without it every leaf is a tensor on
+        ``device``, and a module is moved there and loads its state in
+        place."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -166,4 +214,5 @@ class CheckpointManager:
             manifest = json.load(f)
         flat = {k: np.load(os.path.join(d, k + ".npy"))
                 for k in manifest["leaves"]}
-        return step, _unflatten(template, flat, device), manifest["extra"]
+        return (step, _unflatten(template, flat, device, shardings),
+                manifest["extra"])

@@ -113,7 +113,7 @@ def _dec_layer(x, lp, enc, cfg: ArchConfig):
     out, _ = _no_rope_sdpa(h, lp["cross_attn"], cfg, kv=enc)
     x = x + out
     h = _ln(x, lp["ln3"], cfg.norm_eps)
-    return x + L.mlp(h, lp["mlp"], "gelu")
+    return L.shard_act(x + L.mlp(h, lp["mlp"], "gelu"), seq_model=True)
 
 
 def forward(params: T.Model, frames, tokens, cfg: ArchConfig, *,

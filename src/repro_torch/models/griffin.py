@@ -107,6 +107,9 @@ def rg_lru(branch, p, h0=None):
     (Hillis-Steele) scan over the sequence. branch (B,S,W). Returns (h
     (B,S,W), h_last (B,W) f32)."""
     a, b = _gates(branch, p)
+    # pin batch sharding of the f32 gate tensors: the scan communicates
+    # along S, so B must stay partitioned
+    a, b = L.shard_act(a), L.shard_act(b)
     if h0 is not None:
         b = b.clone()
         b[:, 0] = b[:, 0] + a[:, 0] * h0.float()
@@ -154,7 +157,8 @@ def _window(cfg: ArchConfig) -> int:
 def _unit(x, unit, cfg: ArchConfig, positions, window: int):
     x = _rec_layer(x, unit["rec1"], cfg)
     x = _rec_layer(x, unit["rec2"], cfg)
-    return _attn_layer(x, unit["attn"], cfg, positions, window)[0]
+    return L.shard_act(_attn_layer(x, unit["attn"], cfg, positions,
+                                   window)[0], seq_model=True)
 
 
 def forward(params: T.Model, tokens, cfg: ArchConfig, *,

@@ -23,6 +23,173 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 
+# ----------------------------------------------------- activation sharding --
+# The reference pins the batch sharding of activations GSPMD would otherwise
+# drop (layer carries, loss-region logits). The launch layer installs the
+# mesh axes here and the models pin the residual stream / logits with
+# explicit constraints: on a DTensor, a redistribution to the placements
+# the reference's ``with_sharding_constraint`` names. No-op when unset or on
+# a plain tensor (single-device code).
+#
+# ``seq_model`` additionally shards the sequence dim of the between-layer
+# residual stream over the model axis — Megatron-style sequence
+# parallelism, at the cost of a gather/scatter pair per layer.
+_BATCH_AXES: tuple | None = None
+_BATCH_SIZE: int = 1
+_MODEL_AXIS: str | None = None
+_MODEL_SIZE: int = 1
+_SEQ_SHARD: bool = True
+
+
+def set_activation_sharding(batch_axes, batch_size, model_axis="model",
+                            model_size=1, seq_shard=True):
+    global _BATCH_AXES, _BATCH_SIZE, _MODEL_AXIS, _MODEL_SIZE, _SEQ_SHARD
+    _BATCH_AXES = tuple(batch_axes) if batch_axes else None
+    _BATCH_SIZE = batch_size
+    _MODEL_AXIS = model_axis
+    _MODEL_SIZE = model_size
+    _SEQ_SHARD = seq_shard
+
+
+def clear_activation_sharding():
+    global _BATCH_AXES, _MODEL_AXIS
+    _BATCH_AXES = None
+    _MODEL_AXIS = None
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _sum_partial(x):
+    """A DTensor's pending reductions (``Partial`` placements) carried out,
+    its shards kept. A gather along a sharded dim (the gold logit from
+    vocab-sharded logits) leaves a masked partial, whose mask DTensor
+    misapplies when a later op moves the shards and reduces in one
+    redistribution; summing it at once avoids that."""
+    from torch.distributed.tensor import Replicate
+
+    if not _is_dtensor(x) or not any(q.is_partial() for q in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if q.is_partial() else q for q in x.placements])
+
+
+def _constrain(x, axes: dict):
+    """``x`` (a DTensor) redistributed so that each tensor dim ``d`` of
+    ``axes`` (``{d: axis names}``) lies over exactly those mesh axes. A mesh
+    dim that shards a constrained dim otherwise is replicated; one that
+    shards an unconstrained dim keeps it (the reference's ``UNCONSTRAINED``);
+    a pending reduction (``Partial``) is carried out."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    want = {name: d for d, names in axes.items() for name in names}
+    mesh = x.device_mesh
+    new = []
+    for i, (name, p) in enumerate(zip(mesh.mesh_dim_names, x.placements)):
+        if name in want and mesh.size(i) > 1:  # as sharding.placements
+            new.append(Shard(want[name]))
+        elif name in want:
+            new.append(Replicate())
+        elif p.is_partial() or (p.is_shard() and p.dim % x.ndim in axes):
+            new.append(Replicate())
+        else:
+            new.append(p)
+    if tuple(new) == tuple(x.placements):
+        return x
+    return x.redistribute(mesh, new)
+
+
+def by_rows(fn, x, *args):
+    """``fn(x, *args)`` for a computation that is independent per batch
+    row (dim 0 of ``x``) and needs every other dim whole. On a DTensor it
+    runs on each rank's rows: ``x`` redistributed to keep only its batch
+    shards, ``fn`` applied to the local rows, and each tensor it returns
+    made a DTensor of the same placements (autograd flows through). For
+    ops DTensor has no sharding rule for (``searchsorted``)."""
+    if not _is_dtensor(x):
+        return fn(x, *args)
+    from torch.distributed.tensor import Replicate
+
+    mesh = x.device_mesh
+    rows = [q if q.is_shard(0) else Replicate() for q in x.placements]
+    out = fn(x.redistribute(mesh, rows).to_local(), *args)
+    return tuple(_from_local(o, mesh, rows, (x.shape[0], *o.shape[1:]))
+                 if torch.is_tensor(o) else o for o in out)
+
+
+def _from_local(local, mesh, placements, shape):
+    """A DTensor of global ``shape`` (contiguous) from each rank's
+    ``local`` shard; autograd flows through."""
+    from torch.distributed.tensor import DTensor
+
+    stride = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * shape[d + 1]
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
+
+
+def _heads_local(fn, q, k, v, *args):
+    """``fn(q, k, v, *args)`` for attention (q (B, S, Hq, D), k and v (B,
+    T, Hkv, D) -> (B, S, Hq*D)), which is independent per batch row and
+    per head. On DTensors it runs on each rank's shard: the batch keeps
+    its shards, the heads are split over the first other mesh dim both
+    head counts divide (contiguous blocks, so query head h still reads KV
+    head h // group), every other mesh dim replicates; the output is laid
+    out the same way. DTensor never sees the attention's own ops."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = q.device_mesh
+    placements, heads = [], False
+    for i, p in enumerate(q.placements):
+        if p.is_shard(0):
+            placements.append(Shard(0))
+        elif (not heads and mesh.size(i) > 1
+              and q.shape[2] % mesh.size(i) == 0
+              and k.shape[2] % mesh.size(i) == 0):
+            placements.append(Shard(2))
+            heads = True
+        else:
+            placements.append(Replicate())
+    out = fn(*(t.redistribute(mesh, placements).to_local()
+               for t in (q, k, v)), *args)
+    b, s, hq, d = q.shape
+    return _from_local(out, mesh, placements, (b, s, hq * d))
+
+
+def shard_expert(x):
+    """Constrain (B, E, ...) expert-parallel buffers: batch over DP axes,
+    experts over the model axis (EP)."""
+    if _BATCH_AXES is None or x.ndim < 2 or not _is_dtensor(x):
+        return x
+    axes = {}
+    if x.shape[0] % _BATCH_SIZE == 0 and x.shape[0] >= _BATCH_SIZE:
+        axes[0] = _BATCH_AXES
+    if x.shape[1] % _MODEL_SIZE == 0 and x.shape[1] >= _MODEL_SIZE:
+        axes[1] = (_MODEL_AXIS,)
+    return _constrain(x, axes)
+
+
+def shard_act(x, last_dim_model: bool = False, seq_model: bool = False):
+    """Constrain (B, [S,] ..., D) activations: batch over the DP axes;
+    optionally the seq dim (residual carries) or the last dim (padded vocab
+    logits) over the model axis. Dims that don't divide stay unconstrained."""
+    if _BATCH_AXES is None or x.ndim < 2 or not _is_dtensor(x):
+        return x
+    axes = {}
+    if x.shape[0] % _BATCH_SIZE == 0 and x.shape[0] >= _BATCH_SIZE:
+        axes[0] = _BATCH_AXES
+    if (seq_model and _SEQ_SHARD and x.ndim >= 3
+            and x.shape[1] % _MODEL_SIZE == 0 and x.shape[1] >= _MODEL_SIZE):
+        axes[1] = (_MODEL_AXIS,)
+    if last_dim_model and x.shape[-1] % _MODEL_SIZE == 0:
+        axes[x.ndim - 1] = (_MODEL_AXIS,)
+    return _constrain(x, axes)
+
+
 # --------------------------------------------------------------------- init --
 
 
@@ -141,8 +308,11 @@ def _sdpa(q, k, v, rows, cols, window: int = -1, causal: bool = True):
     ``window``: negative = unlimited; else sliding window.
     Returns (B, S, Hq*D) in q.dtype. Scores and the running state are f32;
     the probabilities are cast to v's dtype before the PV product, as the
-    reference's ``preferred_element_type=f32`` einsums do.
+    reference's ``preferred_element_type=f32`` einsums do. On DTensors
+    each rank attends over its own rows and heads (:func:`_heads_local`).
     """
+    if _is_dtensor(q):
+        return _heads_local(_sdpa, q, k, v, rows, cols, window, causal)
     b, s, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -343,7 +513,17 @@ def init_embedding(cfg: ArchConfig, generator: torch.Generator):
 
 
 def embed(tokens, p, cfg: ArchConfig, dtype):
-    x = F.embedding(tokens.long(), p["embedding"]).to(dtype)
+    table = p["embedding"]
+    if _is_dtensor(table):
+        # Gathered whole first, an explicit redistribution: DTensor's
+        # lookup in a vocab-sharded table leaves a masked partial whose
+        # mask it misaligns when it also moves the tokens' batch, and
+        # whose backward refuses a gradient that arrives as a pending sum.
+        from torch.distributed.tensor import Replicate
+
+        table = table.redistribute(table.device_mesh,
+                                   [Replicate()] * table.device_mesh.ndim)
+    x = F.embedding(tokens.long(), table).to(dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
     return x
@@ -354,10 +534,11 @@ def unembed(x, p, cfg: ArchConfig):
         w = p["embedding"].T
     else:
         w = p["lm_head"]
-    logits = x @ w.to(x.dtype)
+    logits = shard_act(x @ w.to(x.dtype), last_dim_model=True)
     if cfg.padded_vocab != cfg.vocab_size:
         valid = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
         logits = logits.masked_fill(~valid, -1e30)
+        logits = shard_act(logits, last_dim_model=True)
     return logits
 
 
@@ -367,7 +548,8 @@ def lm_loss(logits, labels, mask=None):
     """Mean cross-entropy in f32. logits (B,S,V); labels (B,S) integer."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    gold = _sum_partial(
+        torch.gather(logits, -1, labels.long()[..., None]))[..., 0]
     nll = logz - gold
     if mask is None:
         return nll.mean()

@@ -72,17 +72,23 @@ def route(x, router, cfg: ArchConfig):
     goes to the lower index, as ``lax.top_k``'s); ``gates`` their softmax
     weights in x's dtype; ``slot`` (B, S·k) each assignment's row of the
     (E·cap) slot buffer, ``E·cap`` where capacity dropped it."""
-    b, s, _ = x.shape
+    logits = (x @ router.to(x.dtype)).float()
+    # each row's decision is its own (capacity counts along S): on a
+    # DTensor, each rank routes its rows
+    return L.by_rows(_route_rows, logits, x.dtype, cfg)
+
+
+def _route_rows(logits, dtype, cfg: ArchConfig):
+    b, s, _ = logits.shape
     e = padded_experts(cfg)
     k = cfg.top_k
-    logits = (x @ router.to(x.dtype)).float()
     if e != cfg.n_experts:  # padding experts are never routed to
-        pad_mask = torch.arange(e, device=x.device) >= cfg.n_experts
+        pad_mask = torch.arange(e, device=logits.device) >= cfg.n_experts
         logits = logits.masked_fill(pad_mask, -1e30)
     # a stable descending sort keeps the lower index first among equals
     gate_vals, sel = torch.sort(logits, dim=-1, descending=True, stable=True)
     gate_vals, sel = gate_vals[..., :k], sel[..., :k]         # (B, S, k)
-    gates = torch.softmax(gate_vals, dim=-1).to(x.dtype)
+    gates = torch.softmax(gate_vals, dim=-1).to(dtype)
 
     cap = max(8, int(math.ceil(s * k / e * cfg.capacity_factor)))
     flat_sel = sel.reshape(b, s * k)                          # (B, S*k)
@@ -90,9 +96,9 @@ def route(x, router, cfg: ArchConfig):
     # keep capacity priority.
     order = torch.argsort(flat_sel, dim=1, stable=True)
     sorted_e = torch.gather(flat_sel, 1, order)
-    experts = torch.arange(e, device=x.device).expand(b, e).contiguous()
+    experts = torch.arange(e, device=logits.device).expand(b, e).contiguous()
     starts = torch.searchsorted(sorted_e, experts)            # (B, E), left
-    pos_sorted = (torch.arange(s * k, device=x.device)[None]
+    pos_sorted = (torch.arange(s * k, device=logits.device)[None]
                   - torch.gather(starts, 1, sorted_e))
     pos = torch.zeros_like(flat_sel).scatter_(1, order, pos_sorted)
     keep = pos < cap
@@ -107,7 +113,7 @@ def _dispatch(x_rep, slot, n_slots: int):
     b, _, d = x_rep.shape
     buf = x_rep.new_zeros((b, n_slots + 1, d))
     buf.scatter_(1, slot[..., None].expand(-1, -1, d), x_rep)
-    return buf[:, :n_slots]
+    return L.shard_act(buf[:, :n_slots])
 
 
 def _combine(out_flat, slot, n_slots: int):
@@ -116,8 +122,8 @@ def _combine(out_flat, slot, n_slots: int):
     keep = (slot < n_slots)[..., None]
     idx = torch.clamp(slot, max=n_slots - 1)[..., None]
     g = torch.gather(out_flat, 1, idx.expand(-1, -1, out_flat.shape[-1]))
-    return torch.where(keep, g, torch.zeros((), dtype=g.dtype,
-                                            device=g.device))
+    return L.shard_act(torch.where(keep, g, torch.zeros((), dtype=g.dtype,
+                                                        device=g.device)))
 
 
 def moe_ffn(x, lp, cfg: ArchConfig):
@@ -130,17 +136,19 @@ def moe_ffn(x, lp, cfg: ArchConfig):
     k = cfg.top_k
     _, gates, slot, cap = route(x, lp["router"], cfg)
 
-    x_rep = x.repeat_interleave(k, dim=1)                     # (B, S*k, D)
-    expert_in = _dispatch(x_rep, slot, e * cap).reshape(b, e, cap, d)
+    x_rep = L.shard_act(x.repeat_interleave(k, dim=1))        # (B, S*k, D)
+    expert_in = L.shard_expert(
+        _dispatch(x_rep, slot, e * cap).reshape(b, e, cap, d))
 
     we = lp["experts"]
     gate_h = F.silu(torch.einsum("becd,edf->becf", expert_in,
                                  we["w_gate"].to(x.dtype)))
     up_h = torch.einsum("becd,edf->becf", expert_in, we["w_up"].to(x.dtype))
-    out = torch.einsum("becf,efd->becd", gate_h * up_h,
+    out = torch.einsum("becf,efd->becd", L.shard_expert(gate_h * up_h),
                        we["w_down"].to(x.dtype))
 
-    gathered = _combine(out.reshape(b, e * cap, d), slot, e * cap)
+    out_flat = L.shard_expert(out).reshape(b, e * cap, d)
+    gathered = _combine(out_flat, slot, e * cap)
     y = (gathered.reshape(b, s, k, d) * gates[..., None]).sum(dim=2)
 
     if cfg.n_shared_experts:
@@ -153,7 +161,7 @@ def _block(x, lp, window: int, cfg: ArchConfig, positions):
     attn_out, _ = L.attention(h, lp["attn"], cfg, positions, window)
     x = x + attn_out
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + moe_ffn(h, lp, cfg)
+    return L.shard_act(x + moe_ffn(h, lp, cfg), seq_model=True)
 
 
 def _positions(tokens, x):

@@ -168,7 +168,9 @@ def ssm_block(x, lp, cfg: ArchConfig):
 
 
 def _layer(x, lp, cfg: ArchConfig):
-    return x + ssm_block(L.rms_norm(x, lp["ln"], cfg.norm_eps), lp, cfg)
+    return L.shard_act(
+        x + ssm_block(L.rms_norm(x, lp["ln"], cfg.norm_eps), lp, cfg),
+        seq_model=True)
 
 
 def forward(params: T.Model, tokens, cfg: ArchConfig, *,

@@ -163,7 +163,7 @@ def _block(x, lp, window: int, cfg: ArchConfig, positions, mrope_positions):
                               mrope_positions)
     x = x + attn_out
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + L.mlp(h, lp["mlp"], cfg.act)
+    return L.shard_act(x + L.mlp(h, lp["mlp"], cfg.act), seq_model=True)
 
 
 def _embed_inputs(params, tokens, cfg: ArchConfig, inputs_embeds):

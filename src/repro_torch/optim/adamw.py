@@ -60,19 +60,38 @@ def init(params) -> dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree) -> torch.Tensor:
+def _norm(tensors) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(
-        [torch.sum(torch.square(x.float())) for x in leaves(tree)])))
+        [torch.sum(torch.square(x.float())) for x in tensors])))
+
+
+def global_norm(tree) -> torch.Tensor:
+    return _norm(leaves(tree))
+
+
+def _laid_out_as(g, p):
+    """The gradient ``g`` laid out as its parameter ``p`` is: a DTensor
+    gradient in other placements (a pending sum among them) is
+    redistributed to ``p``'s, so the clip's norm reduces over every shard
+    and the update stays local."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 @torch.no_grad()
 def update(grads, state, params, cfg: AdamWConfig):
     """One AdamW step. Returns (new_params, new_state, metrics); the new
     parameters and moments are ``params``' and ``state``'s tensors, written
-    in place."""
+    in place. DTensor leaves work as plain ones, each gradient laid out as
+    its parameter first."""
     with torch.profiler.record_function("adamw.update"):
         step = state["step"]
-        gnorm = global_norm(grads)
+        grads = [_laid_out_as(g, p)
+                 for g, p in zip(leaves(grads), leaves(params), strict=True)]
+        gnorm = _norm(grads)
         clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
         b1, b2 = cfg.b1, cfg.b2
         t = (step + 1).float()
@@ -82,7 +101,7 @@ def update(grads, state, params, cfg: AdamWConfig):
         # One leaf at a time, in place where the reference's order allows:
         # each op is a pass over a leaf-sized tensor (the step is bound by
         # memory), and the temporaries stay one leaf's.
-        for p, g, m, v in zip(leaves(params), leaves(grads),
+        for p, g, m, v in zip(leaves(params), grads,
                               leaves(state["m"]), leaves(state["v"]),
                               strict=True):
             g = g * clip

@@ -13,8 +13,10 @@
   cast-once knob), and test_models_smoke.py's train-step cases over every
   architecture; the reference marks some slow for its compile time, the
   port's take a second or less here.
-- The launcher: ``main`` with ``--device cpu``, a checkpoint directory,
-  and the errors of ``--mesh production`` and of a missing card.
+- The launcher: ``main`` with ``--device cpu`` (the step through
+  ``jit_train_step`` on the one-device host mesh), a checkpoint directory,
+  and the errors of ``--mesh production`` (too few ranks) and of a
+  missing card.
 """
 
 import dataclasses
@@ -50,11 +52,13 @@ from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models.model_zoo import build, from_numpy_params  # noqa: E402
 from repro_torch.optim import adamw, compression  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
-from repro_torch.optim.tree import leaves, nest  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh, release_mesh  # noqa: E402
+from repro_torch.optim.tree import leaves, nest, tree_map  # noqa: E402
 from repro_torch.runtime.supervisor import (InjectedFailure,  # noqa: E402
                                             Supervisor)
 from repro_torch.runtime.train_loop import (Trainer,  # noqa: E402
                                             init_train_state,
+                                            jit_train_step,
                                             make_train_step)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -183,9 +187,9 @@ def test_train_step_matches_reference(knobs):
 
 
 def test_train_step_perf_knobs_numerics():
-    """The cast-once knob must preserve training semantics (the
-    reference's test, without its ZeRO-3 gather specs: they wait for
-    sharding)."""
+    """The perf train knobs (bf16 cast-once, explicit ZeRO-3 gather specs)
+    must preserve training semantics; as the reference's test, the gather
+    specs replicate every leaf and the step runs on the host mesh."""
     cfg = get_config(ARCH).reduced()
     bundle = build(cfg, remat="none", device="cpu")
     opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10,
@@ -194,7 +198,15 @@ def test_train_step_perf_knobs_numerics():
     state = init_train_state(bundle, torch.Generator().manual_seed(0), opt)
     _, m0 = make_train_step(bundle, opt)(state, batch)
     state = init_train_state(bundle, torch.Generator().manual_seed(0), opt)
-    _, m1 = make_train_step(bundle, opt, cast_params_once=True)(state, batch)
+    specs = tree_map(lambda _: (), state["params"])
+    knob_step = make_train_step(bundle, opt, cast_params_once=True,
+                                param_gather_specs=specs)
+    try:
+        knob_step, _, _ = jit_train_step(knob_step, state,
+                                         make_host_mesh("cpu"), {"tokens": 2})
+        _, m1 = knob_step(state, batch)
+    finally:
+        release_mesh()
     # bf16 cast perturbs the loss slightly; same order, finite, same scale
     assert np.isfinite(float(m1["loss"]))
     assert abs(float(m1["loss"]) - float(m0["loss"])) < 0.1
@@ -371,6 +383,9 @@ def test_launcher_runs_on_the_cpu(capsys, tmp_path):
     assert report.completed_steps == 3 and len(report.losses) == 3
     assert all(np.isfinite(report.losses))
     assert CheckpointManager(str(tmp_path)).all_steps() == [2]
+    # the mesh's process group and the layers' hooks are gone after
+    assert not torch.distributed.is_initialized()
+    assert launch_train.model_layers._BATCH_AXES is None
 
 
 def test_launcher_defaults_are_the_reference_s():
@@ -384,8 +399,12 @@ def test_launcher_defaults_are_the_reference_s():
 
 
 def test_launcher_refuses_what_it_cannot_run(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+    # the production mesh needs 256 ranks; this process is a world of one
+    with pytest.raises(RuntimeError,
+                       match=r"16x16 mesh .* needs 256 ranks; this world "
+                             r"has 1"):
         launch_train.main(["--device", "cpu", "--mesh", "production"])
+    assert not torch.distributed.is_initialized()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_train.main(["--steps", "1"])
