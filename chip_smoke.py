@@ -71,7 +71,12 @@ widths, unreduced:
 - sharded training (phase 10, T1-mesh): the same model, seed, data and
   steps through the launcher's ``--mesh host``: ``jit_train_step`` on a
   (1, 1) ("data", "model") NCCL mesh, the state and batches as DTensors,
-  the layers' activation-sharding hooks set (no kernel of the port either).
+  the layers' activation-sharding hooks set (no kernel of the port either);
+
+- the dry run (phase 11, D1): cells of the production meshes traced on
+  the host with meta states and a fake process group, and phase 9's step
+  counted on the card against its trace (no kernel: the dry run launches
+  none).
 
 The int8 qmatmul and the vmacc kernels take their operands at the real
 size (``qmatmul_ragged``, ``vmacc_ragged``: the wrappers pad nothing);
@@ -231,7 +236,18 @@ Phases (any failure exits nonzero and prints no result line):
      memory, one step profiled (card ms, idle share, operations); after
      it no process group may remain; then ``--mesh production`` must fail
      in ``make_production_mesh`` for lack of ranks (256 wanted, 1 here),
-     again leaving no process group.
+     again leaving no process group;
+  11. the dry run (D1), in subprocesses (their fake process groups never
+     meet phase 10's): (a) granite_3_2b/train_4k on 16x16 and
+     qwen2_moe_a2_7b/decode_32k on 2x16x16 through ``python -m
+     repro_torch.launch.dryrun`` (per-device flops, bytes, collective bytes
+     by op, peak estimate against the card's 85.02 GB, dominant term,
+     roofline fraction, trace time; a failed cell fails the phase); (b)
+     phase 9's Granite step (remat none), run once more on the card under
+     ``op_analysis.analyze`` before its state is released, must count
+     exactly the flops and bytes, and no collective, that the same step
+     traced on a fake (1, 1) mesh with a meta state counts; both beside
+     6 N D, phase 9's profiled card time and max_memory_allocated.
 The last line is {"ok": true, "device": {...}}.
 
 Run:  python3 chip_smoke.py      (needs one CUDA card and nvcc)
@@ -1374,6 +1390,8 @@ def granite_training(card_line: str) -> list[float]:
     trainer.run(1)
     none_peak, none_ms = torch.cuda.max_memory_allocated(), \
         trainer.records[-1].wall_s * 1e3
+    calibration = dict(analyze_card_step(trainer), card_ms=unbound["card_ms"],
+                       opt_ms=unbound["opt_ms"], peak=peak)
     trainer.train_step = make_train_step(build(cfg, remat="full"),
                                          trainer.opt_cfg)
     # the first checkpointed step in a process pays torch's one-time import
@@ -1391,7 +1409,28 @@ def granite_training(card_line: str) -> list[float]:
           f"step {full_ms:.2f} ms (its first step {first_ms:.2f} ms)")
     del trainer
     torch.cuda.empty_cache()
-    return losses
+    return losses, calibration
+
+
+def analyze_card_step(trainer) -> dict:
+    """One more step of ``trainer`` (remat none) under
+    ``op_analysis.analyze``, its batch put on the card first: the counts
+    phase 11 (b) holds against the dry run's trace of the same step, and
+    the step's ``max_memory_allocated``."""
+    import torch
+
+    from repro_torch.launch import op_analysis
+
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in trainer.data.batch_at(trainer.step).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    summary = op_analysis.analyze(trainer.train_step, trainer.state, batch)
+    torch.cuda.synchronize()
+    return {"analysis": summary.to_json(), "memory": summary.memory,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "analyze_s": time.perf_counter() - t0}
 
 
 def _card_and_cpu(cfg, seed: int):
@@ -1569,13 +1608,13 @@ def require_free_card(card_line: str) -> None:
                            f"training: an earlier phase holds card memory")
 
 
-def training_phase(card_line: str, close) -> list[float]:
+def training_phase(card_line: str, close) -> tuple[list[float], dict]:
     """Phase 9: (a) Granite-3-2B training at full width, (b) card against
     CPU, (c) restart, (d) every family at reduced(). Returns (a)'s
-    losses."""
+    losses and its analyzed step (phase 11 (b))."""
     require_free_card(card_line)
     t0 = time.perf_counter()
-    losses = granite_training(card_line)
+    losses, calibration = granite_training(card_line)
     print(f"  (a) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     mobilellm_card_vs_cpu(close)
@@ -1586,7 +1625,7 @@ def training_phase(card_line: str, close) -> list[float]:
     t0 = time.perf_counter()
     families_train_card_vs_cpu(close)
     print(f"  (d) took {time.perf_counter() - t0:.1f} s")
-    return losses
+    return losses, calibration
 
 
 # Phase 10: sharded training (T1-mesh). Phase 9's (a) through the
@@ -1667,6 +1706,137 @@ def sharded_training_phase(card_line: str, unsharded: list[float]) -> None:
     if dist.is_initialized():
         raise RuntimeError("--mesh production left a process group")
     torch.cuda.empty_cache()
+
+
+# Phase 11: the dry run (D1). Its cells run in subprocesses of the CLI, so
+# that their fake process groups never meet phase 10's NCCL group.
+DRYRUN_CELLS = (("granite_3_2b", "train_4k", "single"),
+                ("qwen2_moe_a2_7b", "decode_32k", "multi"))
+# The (1, 1) trace of phase 9's analyzed step: the launcher's model, step
+# and optimizer on a meta state, its batch meta stand-ins; one JSON line.
+CALIBRATION_TRACE = """
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch import dryrun, train as launch_train
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.model_zoo import build
+from repro_torch.runtime.train_loop import (init_train_state,
+                                            jit_train_step, make_train_step)
+args = launch_train.parse_args(sys.argv[1:])
+cfg = get_config(args.arch)
+opt = launch_train.opt_config(args)
+shape = ShapeSpec("t1", args.seq_len, args.batch, "train")
+bundle = build(cfg, remat=args.remat, device="meta")
+with dryrun.fake_world(1):
+    mesh = make_host_mesh("cpu")
+    state = init_train_state(bundle, None, opt)
+    step, _, _ = jit_train_step(make_train_step(bundle, opt), state, mesh,
+                                {"tokens": 2})
+    rec = dryrun.trace_step(step, (state, dryrun.input_specs(
+        cfg, shape, "train")), mesh, {}, cfg, shape)
+print(json.dumps(rec))
+"""
+
+
+def _dryrun_env() -> dict:
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
+
+
+def dryrun_cells(card_line: str) -> None:
+    """(a) Each of DRYRUN_CELLS through ``python -m
+    repro_torch.launch.dryrun``: per-device flops, bytes, collective bytes
+    by op, peak estimate against the card's memory, the dominant term,
+    roofline fraction and trace time. A cell that fails fails the
+    phase."""
+    from repro_torch.launch.report import HBM_BYTES
+
+    out = os.path.join(ROOT, "build", "chip_smoke_dryrun.json")
+    if os.path.exists(out):
+        os.remove(out)
+    for arch, shape, mesh in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--out", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=_dryrun_env(),
+                              capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode:
+            print(proc.stdout[-3000:], proc.stderr[-3000:])
+            raise RuntimeError(f"{' '.join(cmd[1:])}: exit code "
+                               f"{proc.returncode}")
+        with open(out) as f:
+            key = f"{arch}/{shape}/{'2x16x16' if mesh == 'multi' else '16x16'}"
+            rec = json.load(f)[key]
+        if not rec["ok"]:
+            raise RuntimeError(f"dry run {key}: {rec['error']}\n"
+                               f"{rec['traceback']}")
+        a, r = rec["analysis"], rec["roofline"]
+        peak = rec["memory"]["peak_estimate_bytes"]
+        print(f"  (a) {key} ({wall:.1f} s in its process, trace "
+              f"{rec['trace_s']} s): per device {a['flops']:.4e} flops, "
+              f"{a['bytes']:.4e} bytes, collective bytes "
+              f"{json.dumps(a['collective_bytes_by_op'])} "
+              f"(counts {json.dumps(a['collective_counts'])}); peak "
+              f"estimate {peak / 1e9:.2f} GB against the card's "
+              f"{HBM_BYTES / 1e9:.2f} GB; t_compute {r['t_compute_s']:.4e} "
+              f"s, t_memory {r['t_memory_s']:.4e} s, t_collective "
+              f"{r['t_collective_s']:.4e} s: {r['dominant']}-bound, "
+              f"roofline fraction {r['roofline_fraction']:.4f}")
+    print(f"  (card: {card_line})")
+
+
+def dryrun_calibration(card_line: str, calibration: dict) -> None:
+    """(b) Phase 9's analyzed card step against the same step traced on a
+    fake (1, 1) mesh with a meta state (in a subprocess): the same flops
+    and bytes exactly, no collective; both beside 6 N D, the profiled
+    card time and max_memory_allocated."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    argv = ["--arch", "granite_3_2b", "--no-reduced", "--steps",
+            str(TRAIN_STEPS), "--lr", str(TRAIN_LR), "--seed", str(SEED)]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CALIBRATION_TRACE, *argv],
+                          cwd=ROOT, env=_dryrun_env(), capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode:
+        print(proc.stdout[-3000:], proc.stderr[-3000:])
+        raise RuntimeError(f"the (1, 1) trace: exit code {proc.returncode}")
+    traced = json.loads(proc.stdout.strip().splitlines()[-1])
+    card = calibration["analysis"]
+    t = traced["analysis"]
+    cfg = get_config("granite_3_2b")
+    mf = dryrun.model_flops(cfg, ShapeSpec("t1", 128, 8, "train"), "train")
+    t_compute, t_memory = card["flops"] / dryrun.PEAK_FLOPS, \
+        card["bytes"] / dryrun.HBM_BW
+    print(f"  (b) phase 9's step (batch 8 x seq 128, remat none) analyzed on "
+          f"the card in {calibration['analyze_s']:.2f} s: {card['flops']:.6e}"
+          f" flops ({card['flops'] / mf:.4f} x 6 N D = {mf:.6e}), "
+          f"{card['bytes']:.6e} bytes, {card['n_instructions']:.0f} ops, "
+          f"collectives {json.dumps(card['collective_counts'])}")
+    print(f"      traced on a fake (1, 1) mesh with a meta state in "
+          f"{time.perf_counter() - t0:.1f} s (trace {traced['trace_s']} s): "
+          f"{t['flops']:.6e} flops, {t['bytes']:.6e} bytes, "
+          f"{t['n_instructions']:.0f} ops, collectives "
+          f"{json.dumps(t['collective_counts'])}")
+    if (t["flops"], t["bytes"]) != (card["flops"], card["bytes"]) or \
+            t["collective_bytes"] or t["collective_counts"] or \
+            card["collective_counts"]:
+        raise RuntimeError("the dry run's trace does not count what the "
+                           "card ran")
+    print(f"      t_compute {t_compute * 1e3:.3f} ms, t_memory "
+          f"{t_memory * 1e3:.3f} ms, max {max(t_compute, t_memory) * 1e3:.3f}"
+          f" ms against phase 9's profiled card time "
+          f"{calibration['card_ms']:.3f} ms (the optimizer's range "
+          f"{calibration['opt_ms']:.3f} ms); peak estimate "
+          f"{calibration['memory']['peak_estimate_bytes'] / 1e9:.2f} GB "
+          f"(traced {traced['memory']['peak_estimate_bytes'] / 1e9:.2f}) "
+          f"against this step's max_memory_allocated "
+          f"{calibration['max_memory_allocated'] / 1e9:.2f} GB and phase "
+          f"9's {calibration['peak'] / 1e9:.2f} GB ({card_line})")
 
 
 def main() -> int:
@@ -2762,7 +2932,7 @@ def main() -> int:
     # the runner's operands of every workload timed so far (the MoE rows'
     # 151936 x 2048 weights among them) are the card memory still held
     runner.clear_inputs()
-    unsharded = training_phase(card_line, close)
+    unsharded, calibration = training_phase(card_line, close)
     print(f"phase 9 took {time.perf_counter() - t0:.1f} s")
 
     # --------------------------------------------------------------- 10 ----
@@ -2773,6 +2943,15 @@ def main() -> int:
     t0 = time.perf_counter()
     sharded_training_phase(card_line, unsharded)
     print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+
+    # --------------------------------------------------------------- 11 ----
+    phase("11. the dry run (D1): two cells on the production meshes through "
+          "python -m repro_torch.launch.dryrun; phase 9's step on the card "
+          "against its trace on a fake (1, 1) mesh")
+    t0 = time.perf_counter()
+    dryrun_cells(card_line)
+    dryrun_calibration(card_line, calibration)
+    print(f"phase 11 took {time.perf_counter() - t0:.1f} s")
 
     print("rows " + json.dumps(rows))
     print(card_line)

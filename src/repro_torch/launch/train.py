@@ -92,6 +92,13 @@ def train_mesh(args: argparse.Namespace):
         release_mesh()
 
 
+def opt_config(args: argparse.Namespace) -> AdamWConfig:
+    """The optimizer ``args`` describe: warmup over the first twentieth of
+    the steps, then cosine decay over the rest, no weight decay."""
+    return AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 1),
+                       total_steps=args.steps, weight_decay=0.0)
+
+
 def make_trainer(args: argparse.Namespace, mesh=None) -> Trainer:
     """The model, optimizer state, step, data stream and checkpoint
     manager that ``args`` describe, in a ``Trainer``: the step through
@@ -102,8 +109,7 @@ def make_trainer(args: argparse.Namespace, mesh=None) -> Trainer:
     if args.reduced:
         cfg = cfg.reduced()
     bundle = build(cfg, remat=args.remat, device=args.device)
-    opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 1),
-                          total_steps=args.steps, weight_decay=0.0)
+    opt_cfg = opt_config(args)
     # drawn on the device: a host generator would stage a full-width
     # model's weights in host memory. On a mesh every rank draws the same
     # full state and keeps its shards.

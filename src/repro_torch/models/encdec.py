@@ -11,7 +11,6 @@ against the encoded frames, whose keys and values the prefill caches.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -72,16 +71,16 @@ def _no_rope_sdpa(x, p, cfg: ArchConfig, kv=None, causal: bool = False):
     src = kv if kv is not None else x
     b, s, _ = x.shape
     t = src.shape[1]
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (src @ p["wk"].to(x.dtype)).reshape(b, t, cfg.n_kv_heads,
-                                            cfg.head_dim)
-    v = (src @ p["wv"].to(x.dtype)).reshape(b, t, cfg.n_kv_heads,
-                                            cfg.head_dim)
+    q = L.split_heads(x @ p["wq"].to(x.dtype), cfg.n_heads, cfg.head_dim)
+    k = L.split_heads(src @ p["wk"].to(x.dtype), cfg.n_kv_heads,
+                      cfg.head_dim)
+    v = L.split_heads(src @ p["wv"].to(x.dtype), cfg.n_kv_heads,
+                      cfg.head_dim)
     out = L._sdpa(q, k, v,
                   rows=torch.arange(s, dtype=torch.int32, device=x.device),
                   cols=torch.arange(t, dtype=torch.int32, device=x.device),
                   window=-1, causal=causal)
-    return out @ p["wo"].to(x.dtype), (k, v)
+    return L.residual_branch(out @ p["wo"].to(x.dtype)), (k, v)
 
 
 def encode(params: T.Model, frames, cfg: ArchConfig):
@@ -164,8 +163,8 @@ def prefill(params: T.Model, frames, tokens, cfg: ArchConfig, max_len: int):
         x = x + out
         h = _ln(x, lp["ln3"], cfg.norm_eps)
         x = x + L.mlp(h, lp["mlp"], "gelu")
-        parts["k"].append(F.pad(kk.to(dtype), (0, 0, 0, 0, 0, pad)))
-        parts["v"].append(F.pad(vv.to(dtype), (0, 0, 0, 0, 0, pad)))
+        parts["k"].append(L.pad(kk.to(dtype), (0, 0, 0, 0, 0, pad)))
+        parts["v"].append(L.pad(vv.to(dtype), (0, 0, 0, 0, 0, pad)))
         parts["ck"].append(ck.to(dtype))
         parts["cv"].append(cv.to(dtype))
     x = _ln(x, params["final_norm"], cfg.norm_eps)
@@ -191,11 +190,11 @@ def decode_step(params: T.Model, cache, tokens, pos: int, cfg: ArchConfig):
         k_c, v_c = cache["k"][i], cache["v"][i]
         h = _ln(x, lp["ln1"], cfg.norm_eps)
         sa = lp["self_attn"]
-        q = (h @ sa["wq"].to(dtype)).reshape(b, 1, cfg.n_heads, cfg.head_dim)
-        k = (h @ sa["wk"].to(dtype)).reshape(b, 1, cfg.n_kv_heads,
-                                             cfg.head_dim)
-        v = (h @ sa["wv"].to(dtype)).reshape(b, 1, cfg.n_kv_heads,
-                                             cfg.head_dim)
+        q = L.split_heads(h @ sa["wq"].to(dtype), cfg.n_heads, cfg.head_dim)
+        k = L.split_heads(h @ sa["wk"].to(dtype), cfg.n_kv_heads,
+                          cfg.head_dim)
+        v = L.split_heads(h @ sa["wv"].to(dtype), cfg.n_kv_heads,
+                          cfg.head_dim)
         # dynamic_update_slice's clamp: the write stays inside the cache
         write = min(max(pos, 0), k_c.shape[1] - 1)
         k_c[:, write:write + 1] = k
@@ -209,7 +208,7 @@ def decode_step(params: T.Model, cache, tokens, pos: int, cfg: ArchConfig):
         x = x + out @ sa["wo"].to(dtype)
         h = _ln(x, lp["ln2"], cfg.norm_eps)
         ca = lp["cross_attn"]
-        q = (h @ ca["wq"].to(dtype)).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+        q = L.split_heads(h @ ca["wq"].to(dtype), cfg.n_heads, cfg.head_dim)
         ck, cv = cache["ck"][i], cache["cv"][i]
         out = L._sdpa(q, ck, cv,
                       rows=torch.zeros((1,), dtype=torch.int32, device=dev),

@@ -132,7 +132,7 @@ def recurrent_block_seq(x, p, cfg: ArchConfig):
     branch = _conv(x @ p["w_x"].to(x.dtype), p)
     h, _ = rg_lru(branch, p)
     y = F.gelu(x @ p["w_y"].to(x.dtype), approximate="tanh") * h
-    return y @ p["w_out"].to(x.dtype)
+    return L.residual_branch(y @ p["w_out"].to(x.dtype))
 
 
 def _rec_layer(x, p, cfg: ArchConfig):

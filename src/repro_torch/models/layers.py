@@ -115,20 +115,47 @@ def by_rows(fn, x, *args):
 
     mesh = x.device_mesh
     rows = [q if q.is_shard(0) else Replicate() for q in x.placements]
-    out = fn(x.redistribute(mesh, rows).to_local(), *args)
+    out = fn(_local(x, mesh, rows), *args)
     return tuple(_from_local(o, mesh, rows, (x.shape[0], *o.shape[1:]))
                  if torch.is_tensor(o) else o for o in out)
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous: a local
+    shard taken out of a sharded DTensor must hand back a gradient laid
+    out as the strides DTensor derives for the shard (contiguous ones), or
+    DTensor's later views of it fail."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def _local(x, mesh, placements, grad_placements=None):
+    """``x`` (a DTensor) laid out by ``placements``, as this rank's shard;
+    autograd flows through, the shard's gradient taken as laid out by
+    ``grad_placements`` (``placements`` when None)."""
+    local = x.redistribute(mesh, placements).to_local(
+        grad_placements=grad_placements)
+    if any(q.is_shard() for q in placements):
+        return _ContiguousGrad.apply(local)
+    return local  # replicated: the shard's strides are the DTensor's
+
+
 def _from_local(local, mesh, placements, shape):
-    """A DTensor of global ``shape`` (contiguous) from each rank's
-    ``local`` shard; autograd flows through."""
+    """A DTensor of global ``shape`` (contiguous, as the local shard is
+    made) from each rank's ``local`` shard; autograd flows through."""
     from torch.distributed.tensor import DTensor
 
     stride = [1] * len(shape)
     for d in range(len(shape) - 2, -1, -1):
         stride[d] = stride[d + 1] * shape[d + 1]
-    return DTensor.from_local(local, mesh, placements, run_check=False,
+    return DTensor.from_local(local.contiguous(), mesh, placements,
+                              run_check=False,
                               shape=torch.Size(shape), stride=tuple(stride))
 
 
@@ -154,10 +181,75 @@ def _heads_local(fn, q, k, v, *args):
             heads = True
         else:
             placements.append(Replicate())
-    out = fn(*(t.redistribute(mesh, placements).to_local()
-               for t in (q, k, v)), *args)
+    out = fn(*(_local(t, mesh, placements) for t in (q, k, v)), *args)
     b, s, hq, d = q.shape
     return _from_local(out, mesh, placements, (b, s, hq * d))
+
+
+def _on_shards(fn, x, dims, shape):
+    """``fn`` (an op along ``dims``, independent across the other dims) of
+    each rank's shard of the DTensor ``x``, as a DTensor of global
+    ``shape``; a mesh dim that shards one of ``dims`` is replicated
+    first. For ops whose sharding DTensor 2.11 gets wrong (the pad's
+    redistribution, an IndexError) or has no rule for (``cumsum``'s
+    backward, ``flip``)."""
+    from torch.distributed.tensor import Replicate
+
+    placements = [Replicate() if q.is_shard() and q.dim % x.ndim in dims
+                  else q for q in x.placements]
+    return _from_local(fn(_local(x, x.device_mesh, placements)),
+                       x.device_mesh, placements, tuple(shape))
+
+
+def pad(x, widths):
+    """``F.pad(x, widths)`` with zeros, on DTensors shard by shard."""
+    if not _is_dtensor(x):
+        return F.pad(x, widths)
+    shape = list(x.shape)
+    for i in range(len(widths) // 2):
+        shape[x.ndim - 1 - i] += widths[2 * i] + widths[2 * i + 1]
+    return _on_shards(lambda t: F.pad(t, widths), x,
+                      {d for d in range(x.ndim) if shape[d] != x.shape[d]},
+                      shape)
+
+
+def cumsum(x, dim: int):
+    """``torch.cumsum(x, dim)``, on DTensors shard by shard."""
+    if not _is_dtensor(x):
+        return torch.cumsum(x, dim=dim)
+    return _on_shards(lambda t: torch.cumsum(t, dim=dim), x,
+                      {dim % x.ndim}, x.shape)
+
+
+def experts_local(fn, x, weights: dict, *args):
+    """``fn(x, weights, *args)`` for the experts' FFN (x (B, E, C, D),
+    each weight (E, ...) -> (B, E, C, D)), which is independent per batch
+    row and per expert. On DTensors it runs on each rank's shard: the
+    batch keeps its shards, the experts are split over the model axis
+    where it divides them (the reference's EP), every other mesh dim
+    replicates (the weights' FSDP shards are gathered); the output is laid
+    out as ``x``'s shard. DTensor never sees the experts' einsums (its view
+    of their permuted operands fails on local shards)."""
+    if not _is_dtensor(x):
+        return fn(x, weights, *args)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    xp, wp, grads = [], [], []  # grads: the weights' gradients' layout
+    for i, (name, p) in enumerate(zip(mesh.mesh_dim_names, x.placements)):
+        if p.is_shard(0):  # each batch shard adds its rows' gradient
+            layout = (Shard(0), Replicate(), Partial())
+        elif (name == _MODEL_AXIS and mesh.size(i) > 1
+              and x.shape[1] % mesh.size(i) == 0):
+            layout = (Shard(1), Shard(0), Shard(0))
+        else:
+            layout = (Replicate(), Replicate(), Replicate())
+        for placements, q in zip((xp, wp, grads), layout):
+            placements.append(q)
+    out = fn(_local(x, mesh, xp),
+             {k: _local(w, mesh, wp, grads) for k, w in weights.items()},
+             *args)
+    return _from_local(out, mesh, xp, (*x.shape[:3], out.shape[-1]))
 
 
 def shard_expert(x):
@@ -171,6 +263,38 @@ def shard_expert(x):
     if x.shape[1] % _MODEL_SIZE == 0 and x.shape[1] >= _MODEL_SIZE:
         axes[1] = (_MODEL_AXIS,)
     return _constrain(x, axes)
+
+
+class _GradLaidOutAsInput(torch.autograd.Function):
+    """The identity on a DTensor, whose backward lays the gradient out as
+    the input was (a pending sum as replicated)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        from torch.distributed.tensor import Replicate
+
+        ctx.mesh = y.device_mesh
+        ctx.placements = tuple(Replicate() if q.is_partial() else q
+                               for q in y.placements)
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if _is_dtensor(grad) and tuple(grad.placements) != ctx.placements:
+            return grad.redistribute(ctx.mesh, ctx.placements)
+        return grad
+
+
+def residual_branch(y):
+    """A sublayer's output (attention's, the MLP's, ...), before it joins
+    the residual stream. On a DTensor its gradient comes back laid out as
+    ``y`` is: the stream's sequence-sharded gradient is gathered before it
+    reaches the sublayer's last projection, whose backward DTensor 2.11
+    cannot fold (batch and sequence both sharded, as in the forward of
+    :func:`_whole_sequence`)."""
+    if not _is_dtensor(y):
+        return y
+    return _GradLaidOutAsInput.apply(y)
 
 
 def shard_act(x, last_dim_model: bool = False, seq_model: bool = False):
@@ -193,11 +317,22 @@ def shard_act(x, last_dim_model: bool = False, seq_model: bool = False):
 # --------------------------------------------------------------------- init --
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the meta device (torch has
+    none): the init functions allocate there, shapes and dtypes only, and
+    draw nothing. The counterpart of the reference's ``jax.eval_shape`` of
+    an init."""
+    device = torch.device("meta")
+
+
 def _dense_init(shape, generator: torch.Generator, scale=None):
     """f32 normal of ``shape`` scaled by ``1/sqrt(fan_in)`` (``shape[-2]``:
     the stacked layer dim, where present, leads), drawn from
     ``generator`` on its device. Scaled in place: a stacked expert tensor
-    (Qwen1.5-MoE's is 17.7 GB in f32) is never held twice."""
+    (Qwen1.5-MoE's is 17.7 GB in f32) is never held twice. On a
+    :class:`MetaGenerator` nothing is drawn."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     fan_in = shape[-2] if len(shape) > 1 else shape[0]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     return torch.randn(shape, generator=generator, dtype=torch.float32,
@@ -213,12 +348,28 @@ def init_norm(d: int, generator: torch.Generator,
 
 # --------------------------------------------------------------------- norms --
 
+def _whole_sequence(x):
+    """``x`` (B, S, ...) with its sequence gathered where a mesh dim
+    shards it: a norm's output, before the sublayer's projections
+    (Megatron's sequence parallelism gathers there; the residual stream
+    between layers stays sharded, ``shard_act(seq_model=True)``). DTensor
+    cannot flatten batch and sequence into a matmul's rows when both are
+    sharded (torch 2.11 refuses; 2.13 plans a strided shard)."""
+    if not _is_dtensor(x) or x.ndim < 3 or not any(
+            q.is_shard(1) for q in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, [
+        Replicate() if q.is_shard(1) else q for q in x.placements])
+
+
 def rms_norm(x, scale, eps: float = 1e-6):
     dtype = x.dtype
     x = x.float()
     var = torch.mean(x * x, dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps) * scale.float()
-    return out.to(dtype)
+    return _whole_sequence(out.to(dtype))
 
 
 def layer_norm(x, scale, bias, eps: float = 1e-5):
@@ -228,7 +379,7 @@ def layer_norm(x, scale, bias, eps: float = 1e-5):
     var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
     out = (x - mu) * torch.rsqrt(var + eps)
     out = out * scale.float() + bias.float()
-    return out.to(dtype)
+    return _whole_sequence(out.to(dtype))
 
 
 # ---------------------------------------------------------------------- rope --
@@ -288,11 +439,44 @@ def init_attention(cfg: ArchConfig, generator: torch.Generator,
     }
 
 
+def split_heads(y, heads: int, head_dim: int):
+    """``y`` (..., heads * head_dim) as (..., heads, head_dim). On a
+    DTensor, a mesh dim that shards the last dim but does not divide
+    ``heads`` is replicated first, as :func:`_heads_local` replicates it
+    for the attention body: DTensor cannot unflatten an uneven shard (the
+    reference's GSPMD lays one out itself)."""
+    if _is_dtensor(y):
+        from torch.distributed.tensor import Replicate
+
+        mesh = y.device_mesh
+        new = [Replicate() if q.is_shard() and q.dim % y.ndim == y.ndim - 1
+               and heads % mesh.size(i) else q
+               for i, q in enumerate(y.placements)]
+        if tuple(new) != tuple(y.placements):
+            y = y.redistribute(mesh, new)
+    return y.reshape(*y.shape[:-1], heads, head_dim)
+
+
+def merge_heads(y):
+    """``y`` (..., heads, head_dim) as (..., heads * head_dim). On a
+    DTensor each rank merges its own shard, the heads' shards kept (the
+    head dim unsharded): the backward of DTensor's own merge would
+    unflatten a gradient sharded over a mesh dim that :func:`split_heads`
+    replicated."""
+    shape = (*y.shape[:-2], y.shape[-2] * y.shape[-1])
+    if not _is_dtensor(y) or any(
+            q.is_shard() and q.dim % y.ndim == y.ndim - 1
+            for q in y.placements):
+        return y.reshape(shape)
+    local = _local(y, y.device_mesh, y.placements)
+    return _from_local(local.reshape(*local.shape[:-2], -1), y.device_mesh,
+                       y.placements, shape)
+
+
 def _qkv(x, p, cfg: ArchConfig):
-    b, s, _ = x.shape
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (x @ p["wk"].to(x.dtype)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"].to(x.dtype)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = split_heads(x @ p["wq"].to(x.dtype), cfg.n_heads, cfg.head_dim)
+    k = split_heads(x @ p["wk"].to(x.dtype), cfg.n_kv_heads, cfg.head_dim)
+    v = split_heads(x @ p["wv"].to(x.dtype), cfg.n_kv_heads, cfg.head_dim)
     return q, k, v
 
 
@@ -379,7 +563,7 @@ def attention(x, p, cfg: ArchConfig, positions, window: int = -1,
     s = x.shape[1]
     idx = torch.arange(s, dtype=torch.int32, device=x.device)
     out = _sdpa(q, k, v, rows=idx, cols=idx, window=window, causal=True)
-    return out @ p["wo"].to(x.dtype), (k, v)
+    return residual_branch(out @ p["wo"].to(x.dtype)), (k, v)
 
 
 # When enabled (perf knob), decode with a *static* sliding window reads only
@@ -426,7 +610,7 @@ def ring_store(k, cfg, max_len: int):
     b, s, h, d = k.shape
     t_alloc = ring_cache_len(cfg, max_len)
     if t_alloc >= s:
-        return F.pad(k, (0, 0, 0, 0, 0, t_alloc - s))
+        return pad(k, (0, 0, 0, 0, 0, t_alloc - s))
     tail = k[:, s - t_alloc:]
     slots = torch.as_tensor(np.arange(s - t_alloc, s) % t_alloc,
                             device=k.device)  # static permutation
@@ -497,7 +681,7 @@ def mlp(x, p, act: str):
         h = gate * up
     else:
         h = F.gelu(up, approximate="tanh")  # jax.nn.gelu's default
-    return h @ p["w_down"].to(x.dtype)
+    return residual_branch(h @ p["w_down"].to(x.dtype))
 
 
 # ------------------------------------------------------------------ embedding --
@@ -544,13 +728,64 @@ def unembed(x, p, cfg: ArchConfig):
 
 # --------------------------------------------------------------------- loss --
 
+def _nll(logits, labels):
+    """logits (B, S, V) f32 and labels (B, S) -> (B, S) negative log
+    likelihoods. On a DTensor whose vocab a mesh dim shards it is
+    Megatron's vocab-parallel cross-entropy (:func:`_vocab_parallel_nll`):
+    DTensor's own logsumexp and gather all-gather the logits over the
+    vocab, and the gather's backward makes a zero tensor of the logits'
+    global shape on every rank."""
+    v = logits.ndim - 1
+    if _is_dtensor(logits) and any(q.is_shard(v) for q in logits.placements):
+        return _vocab_parallel_nll(logits, labels)
+    logz = torch.logsumexp(logits, dim=-1)
+    return logz - _sum_partial(
+        torch.gather(logits, -1, labels.long()[..., None]))[..., 0]
+
+
+def _vocab_parallel_nll(logits, labels):
+    """:func:`_nll` on each rank's rows and vocab slice: the slices' max
+    (an all-reduce of the max), then each slice's sum of exponentials and
+    its labels' logits (zero for labels in other slices), summed over the
+    slices (one all-reduce); the batch keeps its shards."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    v = logits.ndim - 1
+    mesh = logits.device_mesh
+    lp = [q if q.is_shard(0) or q.is_shard(v) else Replicate()
+          for q in logits.placements]
+    rows = [Shard(0) if q.is_shard(0) else Replicate() for q in lp]
+    shape = tuple(logits.shape[:-1])
+    if not _is_dtensor(labels):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    local = _local(logits, mesh, lp)
+
+    def partial(op):  # the vocab slices' mesh dims pending a reduction
+        return [Partial(op) if q.is_shard(v) else r for q, r in zip(lp, rows)]
+
+    m = _from_local(local.detach().amax(dim=-1), mesh, partial("max"),
+                    shape).redistribute(mesh, rows).to_local()
+    lab = labels.redistribute(mesh, rows).to_local().long()
+    lab = lab - compute_local_shape_and_global_offset(
+        logits.shape, mesh, lp)[1][v]
+    inside = (lab >= 0) & (lab < local.shape[-1])
+    gold = torch.gather(local, -1,
+                        lab.clamp(0, local.shape[-1] - 1)[..., None])[..., 0]
+    sums = torch.stack([torch.exp(local - m[..., None]).sum(dim=-1),
+                        torch.where(inside, gold, torch.zeros_like(gold))],
+                       dim=-1)
+    sums = _local(_sum_partial(_from_local(sums, mesh, partial("sum"),
+                                           (*shape, 2))), mesh, rows)
+    return _from_local(m + torch.log(sums[..., 0]) - sums[..., 1], mesh,
+                       rows, shape)
+
+
 def lm_loss(logits, labels, mask=None):
     """Mean cross-entropy in f32. logits (B,S,V); labels (B,S) integer."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = _sum_partial(
-        torch.gather(logits, -1, labels.long()[..., None]))[..., 0]
-    nll = logz - gold
+    nll = _nll(logits.float(), labels)
     if mask is None:
         return nll.mean()
     mask = mask.float()

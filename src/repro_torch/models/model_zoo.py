@@ -15,7 +15,9 @@ the reference's, so the serving loop treats every architecture alike:
 Batches may hold numpy arrays or tensors; they are moved to the device of
 the parameters. The encoder-decoder family reads its stub frame embeddings
 from ``batch["frames"]``. ``init`` and ``init_cache`` place their tensors
-on the bundle's ``device`` ("cuda" unless the caller asks for "cpu").
+on the bundle's ``device`` ("cuda" unless the caller asks for "cpu"; on
+"meta" ``init`` draws nothing and returns the parameters' shapes, the
+counterpart of the reference's ``jax.eval_shape`` of ``bundle.init``).
 :func:`from_numpy_params` carries the JAX package's parameters (as numpy)
 across, so both packages compute the same thing.
 """
@@ -114,6 +116,8 @@ def build(cfg: ArchConfig, remat: str = "full",
         return mod.init_cache(cfg, b, t, device=device)
 
     def init(generator: torch.Generator):
+        if device.type == "meta":  # shapes only: nothing is drawn
+            generator = layers.MetaGenerator()
         return mod.init_params(cfg, generator, device=device)
 
     def make_batch(seed: int, shape: ShapeSpec, train: bool = True):

@@ -126,6 +126,13 @@ def _combine(out_flat, slot, n_slots: int):
                                                         device=g.device)))
 
 
+def _expert_mlp(expert_in, we: dict):
+    """Each expert's gated MLP on its slots: (B, E, C, D) -> (B, E, C, D)."""
+    gate_h = F.silu(torch.einsum("becd,edf->becf", expert_in, we["w_gate"]))
+    up_h = torch.einsum("becd,edf->becf", expert_in, we["w_up"])
+    return torch.einsum("becf,efd->becd", gate_h * up_h, we["w_down"])
+
+
 def moe_ffn(x, lp, cfg: ArchConfig):
     """x (B, S, D) -> (B, S, D): top-k routed experts + shared experts.
 
@@ -140,12 +147,8 @@ def moe_ffn(x, lp, cfg: ArchConfig):
     expert_in = L.shard_expert(
         _dispatch(x_rep, slot, e * cap).reshape(b, e, cap, d))
 
-    we = lp["experts"]
-    gate_h = F.silu(torch.einsum("becd,edf->becf", expert_in,
-                                 we["w_gate"].to(x.dtype)))
-    up_h = torch.einsum("becd,edf->becf", expert_in, we["w_up"].to(x.dtype))
-    out = torch.einsum("becf,efd->becd", L.shard_expert(gate_h * up_h),
-                       we["w_down"].to(x.dtype))
+    we = {k: w.to(x.dtype) for k, w in lp["experts"].items()}
+    out = L.experts_local(_expert_mlp, expert_in, we)
 
     out_flat = L.shard_expert(out).reshape(b, e * cap, d)
     gathered = _combine(out_flat, slot, e * cap)
@@ -153,7 +156,7 @@ def moe_ffn(x, lp, cfg: ArchConfig):
 
     if cfg.n_shared_experts:
         y = y + L.mlp(x, lp["shared"], "silu")
-    return y
+    return L.residual_branch(y)
 
 
 def _block(x, lp, window: int, cfg: ArchConfig, positions):
@@ -223,8 +226,8 @@ def prefill(params: T.Model, tokens, cfg: ArchConfig, max_len: int):
         x = x + attn_out
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + moe_ffn(h, lp, cfg)
-        ks.append(F.pad(kk.to(dtype), (0, 0, 0, 0, 0, pad)))
-        vs.append(F.pad(vv.to(dtype), (0, 0, 0, 0, 0, pad)))
+        ks.append(L.pad(kk.to(dtype), (0, 0, 0, 0, 0, pad)))
+        vs.append(L.pad(vv.to(dtype), (0, 0, 0, 0, 0, pad)))
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(x, params, cfg), {"k": torch.stack(ks),
                                        "v": torch.stack(vs)}

@@ -70,7 +70,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 def causal_conv(x, w, b):
     """Depthwise causal conv. x (B, S, C); w (K, C)."""
     k = w.shape[0]
-    xp = F.pad(x, (0, 0, k - 1, 0))
+    xp = L.pad(x, (0, 0, k - 1, 0))
     out = sum(xp[:, i:i + x.shape[1], :] * w[i].to(x.dtype)
               for i in range(k))
     return out + b.to(x.dtype)
@@ -86,17 +86,17 @@ def ssd_chunked(xdt, da, b_mat, c_mat, chunk: int, init_state=None):
     q = min(chunk, l)
     pad = (-l) % q
     if pad:
-        xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
-        da = F.pad(da, (0, 0, 0, pad))
-        b_mat = F.pad(b_mat, (0, 0, 0, pad))
-        c_mat = F.pad(c_mat, (0, 0, 0, pad))
+        xdt = L.pad(xdt, (0, 0, 0, 0, 0, pad))
+        da = L.pad(da, (0, 0, 0, pad))
+        b_mat = L.pad(b_mat, (0, 0, 0, pad))
+        c_mat = L.pad(c_mat, (0, 0, 0, pad))
     nc = (l + pad) // q
     dtype = xdt.dtype
     xc = xdt.reshape(bsz, nc, q, h, p)
     bc = b_mat.reshape(bsz, nc, q, n)
     cc = c_mat.reshape(bsz, nc, q, n)
     dac = da.reshape(bsz, nc, q, h).permute(0, 1, 3, 2)       # (B,nc,H,Q)
-    cs = torch.cumsum(dac.float(), dim=-1)
+    cs = L.cumsum(dac.float(), dim=-1)
 
     # intra-chunk (quadratic within chunk)
     seg = cs[..., :, None] - cs[..., None, :]                 # (B,nc,H,Q,Q)
@@ -153,13 +153,13 @@ def _ssm_seq(x, lp, cfg: ArchConfig, round_dt: bool):
         dt = dt.to(x.dtype).float()
     a = -torch.exp(lp["a_log"].float())                       # (H,)
     da = dt * a                                               # (B,S,H)
-    xh = xs.reshape(*xs.shape[:-1], h, cfg.ssm_head_dim)
+    xh = L.split_heads(xs, h, cfg.ssm_head_dim)
     xdt = xh * dt.to(x.dtype)[..., None]
     y, final = ssd_chunked(xdt, da, b_mat, c_mat, cfg.ssm_chunk)
     y = y + xh * lp["d_skip"].to(x.dtype)[:, None]
-    y = y.reshape(*x.shape[:-1], d_in)
+    y = L.merge_heads(y)
     y = L.rms_norm(y * F.silu(z), lp["gate_norm"], cfg.norm_eps)
-    return y @ lp["out_proj"].to(x.dtype), conv_tail, final
+    return L.residual_branch(y @ lp["out_proj"].to(x.dtype)), conv_tail, final
 
 
 def ssm_block(x, lp, cfg: ArchConfig):

@@ -247,10 +247,12 @@ def decode_step(params: Model, cache, tokens, pos: int,
 @torch.no_grad()
 def prefill(params: Model, tokens, cfg: ArchConfig, max_len: int, *,
             inputs_embeds=None, mrope_positions=None):
-    """Forward + cache construction for serving. Returns (logits, cache)."""
+    """Forward + cache construction for serving. Returns (logits, cache):
+    each layer's keys and values stacked, as the reference's scan stacks
+    them (on a mesh the cache keeps the layout attention gave them)."""
     x, positions = _embed_inputs(params, tokens, cfg, inputs_embeds)
     dtype = DTYPES[cfg.dtype]
-    cache = init_cache(cfg, tokens.shape[0], max_len, device=x.device)
+    ks, vs = [], []
     layers = unbind_layers(params["layers"])
     for i in range(cfg.n_layers):
         lp = layers[i]
@@ -261,7 +263,8 @@ def prefill(params: Model, tokens, cfg: ArchConfig, max_len: int, *,
         x = x + attn_out
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + L.mlp(h, lp["mlp"], cfg.act)
-        cache["k"][i] = L.ring_store(k.to(dtype), cfg, max_len)
-        cache["v"][i] = L.ring_store(v.to(dtype), cfg, max_len)
+        ks.append(L.ring_store(k.to(dtype), cfg, max_len))
+        vs.append(L.ring_store(v.to(dtype), cfg, max_len))
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return L.unembed(x, params, cfg), cache
+    return L.unembed(x, params, cfg), {"k": torch.stack(ks),
+                                       "v": torch.stack(vs)}

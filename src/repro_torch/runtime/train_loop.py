@@ -21,6 +21,7 @@ device that holds the parameters.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Callable
 
@@ -60,6 +61,27 @@ def gather_params(params, specs) -> dict:
     backward of each redistribution lays the gradient out as the leaf is."""
     return tree_map(lambda x, spec: x.redistribute(
         x.device_mesh, sh.placements(spec, x.device_mesh)), params, specs)
+
+
+def _microbatches(x, n: int) -> list:
+    """``x`` split along dim 0 into ``n`` microbatches in order (the
+    reference's ``reshape(n, B // n, ...)``). A DTensor's batch shards are
+    gathered first and each microbatch laid out as ``x`` is: DTensor cannot
+    unflatten a sharded dim into ``n`` rows the mesh does not divide. A
+    microbatch whose rows the batch shards do not divide stays
+    replicated, as ``token_sharding`` leaves such a batch."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    rows = x.shape[0] // n
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        whole = x.redistribute(mesh, [Replicate()] * mesh.ndim)
+        shards = math.prod(mesh.size(i) for i, p in enumerate(x.placements)
+                           if p.is_shard(0))
+        placements = x.placements if rows % shards == 0 else whole.placements
+        return [part.redistribute(mesh, placements) for part in
+                whole.reshape(n, rows, *x.shape[1:]).unbind(0)]
+    return x.reshape(n, rows, *x.shape[1:])
 
 
 def make_train_step(bundle: ModelBundle, opt_cfg: adamw.AdamWConfig,
@@ -104,9 +126,8 @@ def make_train_step(bundle: ModelBundle, opt_cfg: adamw.AdamWConfig,
         if grad_accum == 1:
             loss, grads = value_and_grad(params, batch)
         else:
-            micro_batches = {
-                k: x.reshape(grad_accum, x.shape[0] // grad_accum,
-                             *x.shape[1:]) for k, x in batch.items()}
+            micro_batches = {k: _microbatches(x, grad_accum)
+                             for k, x in batch.items()}
             loss, grads = 0.0, tree_map(torch.zeros_like, params)
             for i in range(grad_accum):
                 l, g = value_and_grad(
@@ -152,6 +173,14 @@ def place_state(node, shardings):
     return shardings.place(node)
 
 
+def _on_host(v, mesh):
+    """A batch entry as a tensor on the mesh's device type; a meta tensor
+    (a dry run's shape stand-in) stays on meta."""
+    if torch.is_tensor(v) and v.is_meta:
+        return v
+    return torch.as_tensor(v, device=mesh.device_type)
+
+
 def jit_train_step(train_step, state, mesh, batch_ndim: dict[str, int]):
     """Lay ``state`` out on ``mesh`` (in place: FSDP x TP parameter
     shardings, the moments and error feedback like the parameters, the
@@ -174,8 +203,8 @@ def jit_train_step(train_step, state, mesh, batch_ndim: dict[str, int]):
     place_state(state, state_sh)
 
     def step(state, batch):
-        batch = {k: batch_sh[k].place(torch.as_tensor(
-                     v, device=mesh.device_type)) for k, v in batch.items()}
+        batch = {k: batch_sh[k].place(_on_host(v, mesh))
+                 for k, v in batch.items()}
         with implicit_replication():
             return train_step(state, batch)
 

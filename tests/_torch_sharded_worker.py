@@ -3,7 +3,9 @@ on a gloo 2x2 ("data", "model") mesh. Spawned workers import this module
 by name, so it imports torch and the port only (not JAX).
 
 Rank 0 writes what the ranks computed (full values, numpy) to
-``<out>/result.pt``; the test holds it against the reference.
+``<out>/result.pt``; the test holds it against the reference. Last, the
+same four ranks as one (1, 4) row run a step whose model axis does not
+divide the KV heads, held against the unsharded step.
 """
 
 import os
@@ -90,6 +92,51 @@ def _train(arch, weights, opt_cfg, mesh, gather: bool):
     return result, state, state_sh
 
 
+def _uneven_heads(weights, opt_cfg) -> dict:
+    """One ``jit_train_step`` of ``granite_3_2b.reduced()`` (2 KV heads)
+    on the four ranks laid out as one (1, 4) ("data", "model") row, where
+    the model axis does not divide the KV heads, against the unsharded
+    step from the same weights and batch."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import layers as L
+    from repro_torch.models.model_zoo import build, from_numpy_params
+    from repro_torch.optim import adamw
+    from repro_torch.optim.tree import leaves
+    from repro_torch.runtime.train_loop import jit_train_step, make_train_step
+
+    cfg = get_config("granite_3_2b").reduced()
+    mesh = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+    L.set_activation_sharding(("data",), 1, "model", 4)
+    bundle = build(cfg, remat="none", device="cpu")
+    batch = bundle.make_batch(0, ShapeSpec("t", SEQ, BATCH, "train"))
+    states = []
+    for _ in range(2):
+        params = from_numpy_params(cfg, weights, "cpu")
+        states.append({"params": params, "opt": adamw.init(params)})
+    plain, m0 = make_train_step(bundle, opt_cfg)(states[0], batch)
+    step, _, _ = jit_train_step(make_train_step(bundle, opt_cfg), states[1],
+                                mesh, {k: v.ndim for k, v in batch.items()})
+    sharded, m1 = step(states[1], batch)
+    # Adam's first update is ill conditioned where sqrt(vhat) is under 100
+    # eps: there gradients that agree within 1e-8 give updates apart by up
+    # to lr (tests/test_torch_sharded_train.py's _check_leaf)
+    well, ill = [], []
+    for a, b, v in zip(leaves(plain["params"]), leaves(sharded["params"]),
+                       leaves(plain["opt"]["v"]), strict=True):
+        diff = (a.detach() - b.full_tensor().detach()).abs()
+        cond = (v / (1 - opt_cfg.b2)).sqrt() <= 100 * opt_cfg.eps
+        well.append(float(diff[~cond].max()) if (~cond).any() else 0.0)
+        ill.append(float(diff[cond].max()) if cond.any() else 0.0)
+    return {"kv_heads": cfg.n_kv_heads,
+            "loss": float(m0["loss"]), "sharded_loss": float(m1["loss"]),
+            "grad_norm": float(m0["grad_norm"]),
+            "sharded_grad_norm": float(m1["grad_norm"]),
+            "max_param_diff": max(well), "max_ill_param_diff": max(ill)}
+
+
 def run(rank: int, world: int, store_path: str, out: str, weights: dict,
         opt_cfg, seeds) -> None:
     torch.set_num_threads(1)
@@ -143,6 +190,7 @@ def run(rank: int, world: int, store_path: str, out: str, weights: dict,
         gathered = [None] * world
         dist.all_gather_object(gathered, out_ar)
         res["all_reduce"] = gathered
+        res["uneven_heads"] = _uneven_heads(weights["granite_3_2b"], opt_cfg)
         L.clear_activation_sharding()
         if rank == 0:
             torch.save(res, os.path.join(out, "result.pt"))

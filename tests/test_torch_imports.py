@@ -1,5 +1,5 @@
 """The port stands alone: importing every module of ``src/repro_torch`` (the
-training and sharding paths' among them) and every module ``chip_smoke.py`` and
+training, sharding and dry-run paths' among them) and every module ``chip_smoke.py`` and
 ``examples/quickstart_torch.py`` name in an import (inside ``main`` too)
 loads neither ``jax`` nor any module of the JAX package ``repro``. Checked
 in a fresh interpreter, so that what other tests imported does not
@@ -32,8 +32,8 @@ for node in (n for tree in trees for n in ast.walk(tree)):
         for alias in node.names:
             if not hasattr(base, alias.name):  # a submodule
                 importlib.import_module(f"{node.module}.{alias.name}")
-# every model family's module among them, the training path's and the
-# sharding path's
+# every model family's module among them, the training path's, the
+# sharding path's and the dry run's
 missing = [m for m in ("repro_torch.models.moe", "repro_torch.models.ssm",
                        "repro_torch.models.griffin",
                        "repro_torch.models.encdec",
@@ -44,7 +44,10 @@ missing = [m for m in ("repro_torch.models.moe", "repro_torch.models.ssm",
                        "repro_torch.runtime.supervisor",
                        "repro_torch.runtime.sharding",
                        "repro_torch.launch.mesh",
-                       "repro_torch.launch.train")
+                       "repro_torch.launch.train",
+                       "repro_torch.launch.dryrun",
+                       "repro_torch.launch.op_analysis",
+                       "repro_torch.launch.report")
            if m not in sys.modules]
 print("missing", missing)
 bad = sorted(m for m in sys.modules
