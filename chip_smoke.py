@@ -238,16 +238,25 @@ Phases (any failure exits nonzero and prints no result line):
      in ``make_production_mesh`` for lack of ranks (256 wanted, 1 here),
      again leaving no process group;
   11. the dry run (D1), in subprocesses (their fake process groups never
-     meet phase 10's): (a) granite_3_2b/train_4k on 16x16 and
-     qwen2_moe_a2_7b/decode_32k on 2x16x16 through ``python -m
-     repro_torch.launch.dryrun`` (per-device flops, bytes, collective bytes
-     by op, peak estimate against the card's 85.02 GB, dominant term,
-     roofline fraction, trace time; a failed cell fails the phase); (b)
+     meet phase 10's): (a) granite_3_2b/train_4k and
+     qwen2_moe_a2_7b/train_4k on 16x16 and qwen2_moe_a2_7b/decode_32k on
+     2x16x16 through ``python -m repro_torch.launch.dryrun`` (per-device
+     flops, bytes, collective bytes by op, peak estimate against the
+     card's 85.02 GB, dominant term, roofline fraction, trace time; a
+     failed cell, or a train cell whose peak estimate is over the card's
+     memory, fails the phase); (b)
      phase 9's Granite step (remat none), run once more on the card under
      ``op_analysis.analyze`` before its state is released, must count
      exactly the flops and bytes, and no collective, that the same step
      traced on a fake (1, 1) mesh with a meta state counts; both beside
-     6 N D, phase 9's profiled card time and max_memory_allocated.
+     6 N D, phase 9's profiled card time and max_memory_allocated;
+  12. the examples, each in a subprocess on the card at short settings:
+     ``examples/train_lm_torch.py --steps 20`` (MobileLLM-125M at full
+     width), ``examples/serve_lm_torch.py --continuous-tune`` (cold
+     ``fixed``, one tuner cycle on ``CudaRunner``, then ``tuned``) and
+     ``examples/tune_workload_torch.py --trials 4`` (BERT-tiny int8 as one
+     ``TuningSession``); their key lines printed, an exit code other than 0
+     fails the phase.
 The last line is {"ok": true, "device": {...}}.
 
 Run:  python3 chip_smoke.py      (needs one CUDA card and nvcc)
@@ -1711,6 +1720,7 @@ def sharded_training_phase(card_line: str, unsharded: list[float]) -> None:
 # Phase 11: the dry run (D1). Its cells run in subprocesses of the CLI, so
 # that their fake process groups never meet phase 10's NCCL group.
 DRYRUN_CELLS = (("granite_3_2b", "train_4k", "single"),
+                ("qwen2_moe_a2_7b", "train_4k", "single"),
                 ("qwen2_moe_a2_7b", "decode_32k", "multi"))
 # The (1, 1) trace of phase 9's analyzed step: the launcher's model, step
 # and optimizer on a meta state, its batch meta stand-ins; one JSON line.
@@ -1748,8 +1758,8 @@ def dryrun_cells(card_line: str) -> None:
     """(a) Each of DRYRUN_CELLS through ``python -m
     repro_torch.launch.dryrun``: per-device flops, bytes, collective bytes
     by op, peak estimate against the card's memory, the dominant term,
-    roofline fraction and trace time. A cell that fails fails the
-    phase."""
+    roofline fraction and trace time. A cell that fails, or a train cell
+    whose peak estimate is over the card's memory, fails the phase."""
     from repro_torch.launch.report import HBM_BYTES
 
     out = os.path.join(ROOT, "build", "chip_smoke_dryrun.json")
@@ -1784,6 +1794,10 @@ def dryrun_cells(card_line: str) -> None:
               f"s, t_memory {r['t_memory_s']:.4e} s, t_collective "
               f"{r['t_collective_s']:.4e} s: {r['dominant']}-bound, "
               f"roofline fraction {r['roofline_fraction']:.4f}")
+        if rec["kind"] == "train" and peak > HBM_BYTES:
+            raise RuntimeError(f"dry run {key}: peak estimate "
+                               f"{peak / 1e9:.2f} GB is over the card's "
+                               f"{HBM_BYTES / 1e9:.2f} GB")
     print(f"  (card: {card_line})")
 
 
@@ -1837,6 +1851,40 @@ def dryrun_calibration(card_line: str, calibration: dict) -> None:
           f"against this step's max_memory_allocated "
           f"{calibration['max_memory_allocated'] / 1e9:.2f} GB and phase "
           f"9's {calibration['peak'] / 1e9:.2f} GB ({card_line})")
+
+
+# Phase 12: the examples, each in a subprocess on the card at short
+# settings, and the lines of its printout that carry its result.
+EXAMPLES = (
+    (("train_lm_torch.py", "--steps", "20"), ("training ", "loss ")),
+    (("serve_lm_torch.py", "--continuous-tune", "--tune-trials", "4"),
+     ("arch=", "prefill(", "decode (", "cold dispatch", "after ")),
+    (("tune_workload_torch.py", "--trials", "4"),
+     ("bert-tiny total", "session wall time", "database records")),
+)
+
+
+def examples_phase(card_line: str) -> None:
+    """Each of EXAMPLES through ``python examples/<name>`` on the card: its
+    exit code, wall seconds and key lines; an exit code other than 0 fails
+    the phase."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")]
+        + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    for (name, *argv), keys in EXAMPLES:
+        cmd = [sys.executable, os.path.join("examples", name), *argv]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        print(f"  python examples/{name} {' '.join(argv)}: exit code "
+              f"{proc.returncode} in {time.perf_counter() - t0:.1f} s")
+        for line in proc.stdout.splitlines():
+            if line.strip().startswith(keys):
+                print("    " + line.strip())
+        if proc.returncode != 0:
+            print(proc.stdout[-3000:], proc.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"examples/{name} failed")
+    print(f"  (card: {card_line})")
 
 
 def main() -> int:
@@ -2945,13 +2993,21 @@ def main() -> int:
     print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
     # --------------------------------------------------------------- 11 ----
-    phase("11. the dry run (D1): two cells on the production meshes through "
-          "python -m repro_torch.launch.dryrun; phase 9's step on the card "
-          "against its trace on a fake (1, 1) mesh")
+    phase("11. the dry run (D1): three cells on the production meshes "
+          "through python -m repro_torch.launch.dryrun; phase 9's step on "
+          "the card against its trace on a fake (1, 1) mesh")
     t0 = time.perf_counter()
     dryrun_cells(card_line)
     dryrun_calibration(card_line, calibration)
     print(f"phase 11 took {time.perf_counter() - t0:.1f} s")
+
+    # --------------------------------------------------------------- 12 ----
+    phase("12. the examples on the card: train_lm_torch.py, "
+          "serve_lm_torch.py --continuous-tune, tune_workload_torch.py")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    examples_phase(card_line)
+    print(f"phase 12 took {time.perf_counter() - t0:.1f} s")
 
     print("rows " + json.dumps(rows))
     print(card_line)

@@ -15,6 +15,7 @@ one layer's slice of the stacked ``(L, ...)`` parameters of
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -104,20 +105,25 @@ def _constrain(x, axes: dict):
 
 def by_rows(fn, x, *args):
     """``fn(x, *args)`` for a computation that is independent per batch
-    row (dim 0 of ``x``) and needs every other dim whole. On a DTensor it
-    runs on each rank's rows: ``x`` redistributed to keep only its batch
-    shards, ``fn`` applied to the local rows, and each tensor it returns
-    made a DTensor of the same placements (autograd flows through). For
-    ops DTensor has no sharding rule for (``searchsorted``)."""
+    row (dim 0 of ``x`` and of every tensor in ``args``) and needs every
+    other dim whole. On a DTensor it runs on each rank's rows: ``x`` and
+    each DTensor of ``args`` redistributed to keep only ``x``'s batch
+    shards, ``fn`` applied to the local rows, and what it returns (a
+    tensor or a tuple) made DTensors of the same placements (autograd
+    flows through). For ops DTensor has no sharding rule for
+    (``searchsorted``) or shards badly (a scatter into a buffer, which it
+    gathers whole over the batch shards)."""
     if not _is_dtensor(x):
         return fn(x, *args)
     from torch.distributed.tensor import Replicate
 
     mesh = x.device_mesh
     rows = [q if q.is_shard(0) else Replicate() for q in x.placements]
-    out = fn(_local(x, mesh, rows), *args)
-    return tuple(_from_local(o, mesh, rows, (x.shape[0], *o.shape[1:]))
-                 if torch.is_tensor(o) else o for o in out)
+    out = fn(_local(x, mesh, rows), *(
+        _local(a, mesh, rows) if _is_dtensor(a) else a for a in args))
+    wrap = lambda o: (_from_local(o, mesh, rows, (x.shape[0], *o.shape[1:]))
+                      if torch.is_tensor(o) else o)
+    return wrap(out) if torch.is_tensor(out) else tuple(map(wrap, out))
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -159,31 +165,61 @@ def _from_local(local, mesh, placements, shape):
                               shape=torch.Size(shape), stride=tuple(stride))
 
 
-def _heads_local(fn, q, k, v, *args):
-    """``fn(q, k, v, *args)`` for attention (q (B, S, Hq, D), k and v (B,
-    T, Hkv, D) -> (B, S, Hq*D)), which is independent per batch row and
-    per head. On DTensors it runs on each rank's shard: the batch keeps
-    its shards, the heads are split over the first other mesh dim both
-    head counts divide (contiguous blocks, so query head h still reads KV
-    head h // group), every other mesh dim replicates; the output is laid
-    out the same way. DTensor never sees the attention's own ops."""
-    from torch.distributed.tensor import Replicate, Shard
+def _heads_local(fn, q, k, v, rows, *args):
+    """``fn(q, k, v, rows, *args)`` for attention (q (B, S, Hq, D), k and v
+    (B, T, Hkv, D), rows (S,) the queries' global positions -> (B, S,
+    Hq*D)), which is independent per batch row, query head and query row.
+    On DTensors it runs on each rank's shard. The batch keeps its shards.
+    The first other mesh dim of size > 1 splits the query heads where it
+    divides them (contiguous blocks), else the query rows where it divides
+    them; every other mesh dim replicates. With the heads split, each rank
+    reads the KV heads its block uses (query head h reads KV head h //
+    group, the reference's layout after its ``jnp.repeat``): sharded with
+    the query heads where the mesh dim divides both counts, else taken
+    whole and indexed. With the rows split, each rank attends over its
+    rows, at their global positions, against the whole K/V, and the output
+    rows are gathered after. A K/V taken whole returns its gradient as a
+    partial sum over that mesh dim. The output is laid out as q's shard
+    (its rows whole); DTensor never sees the attention's own ops."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
 
     mesh = q.device_mesh
-    placements, heads = [], False
-    for i, p in enumerate(q.placements):
-        if p.is_shard(0):
-            placements.append(Shard(0))
-        elif (not heads and mesh.size(i) > 1
-              and q.shape[2] % mesh.size(i) == 0
-              and k.shape[2] % mesh.size(i) == 0):
-            placements.append(Shard(2))
-            heads = True
-        else:
-            placements.append(Replicate())
-    out = fn(*(_local(t, mesh, placements) for t in (q, k, v)), *args)
     b, s, hq, d = q.shape
-    return _from_local(out, mesh, placements, (b, s, hq * d))
+    hkv = k.shape[2]
+    qp, kvp, kvg = [], [], []  # kvg: the K/V shards' gradients' layout
+    split = None  # (mesh dim, its size, "heads" or "rows")
+    for i, p in enumerate(q.placements):
+        n = mesh.size(i)
+        if p.is_shard(0):
+            layout = (Shard(0), Shard(0), Shard(0))
+        elif split is None and n > 1 and hq % n == 0:
+            split = (i, n, "heads")
+            layout = ((Shard(2), Shard(2), Shard(2)) if hkv % n == 0
+                      else (Shard(2), Replicate(), Partial()))
+        elif split is None and n > 1 and s % n == 0:
+            split = (i, n, "rows")
+            layout = (Shard(1), Replicate(), Partial())
+        else:
+            layout = (Replicate(), Replicate(), Replicate())
+        for placements, pl in zip((qp, kvp, kvg), layout):
+            placements.append(pl)
+    ql = _local(q, mesh, qp)
+    kl, vl = (_local(t, mesh, kvp, kvg) for t in (k, v))
+    if split is not None:
+        i, n, how = split
+        r = mesh.get_local_rank(i)
+        if how == "rows":
+            rows = rows[r * (s // n):(r + 1) * (s // n)]
+        elif hkv % n:  # this block's KV heads, one per query head
+            heads = torch.arange(r * (hq // n), (r + 1) * (hq // n),
+                                 device=kl.device) // (hq // hkv)
+            kl, vl = kl.index_select(2, heads), vl.index_select(2, heads)
+    out = _from_local(fn(ql, kl, vl, rows, *args), mesh, qp, (b, s, hq * d))
+    if split is not None and split[2] == "rows":
+        # the rows gathered again before the output projection, which
+        # DTensor 2.11 cannot run with the sequence sharded
+        out = _whole_sequence(out)
+    return out
 
 
 def _on_shards(fn, x, dims, shape):
@@ -191,14 +227,37 @@ def _on_shards(fn, x, dims, shape):
     each rank's shard of the DTensor ``x``, as a DTensor of global
     ``shape``; a mesh dim that shards one of ``dims`` is replicated
     first. For ops whose sharding DTensor 2.11 gets wrong (the pad's
-    redistribution, an IndexError) or has no rule for (``cumsum``'s
-    backward, ``flip``)."""
+    redistribution, an IndexError)."""
     from torch.distributed.tensor import Replicate
 
     placements = [Replicate() if q.is_shard() and q.dim % x.ndim in dims
                   else q for q in x.placements]
     return _from_local(fn(_local(x, x.device_mesh, placements)),
                        x.device_mesh, placements, tuple(shape))
+
+
+def columns(w, start: int, stop: int, shard: bool = True):
+    """``w[..., start:stop]``, a weight's columns. On a DTensor whose last
+    dim a mesh dim shards, the columns are taken from the weight gathered
+    over that mesh dim, then laid back out over it where ``shard`` asks
+    and its size divides their width (else kept whole: each rank computes
+    the product with them)."""
+    if not _is_dtensor(w):
+        return w[..., start:stop]
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, last = w.device_mesh, w.ndim - 1
+    dims = [i for i, q in enumerate(w.placements)
+            if q.is_shard() and q.dim % w.ndim == last]
+    if not dims:
+        return w[..., start:stop]
+    whole = w.redistribute(mesh, [Replicate() if i in dims else q
+                                  for i, q in enumerate(w.placements)])
+    piece = whole[..., start:stop]
+    return piece.redistribute(mesh, [
+        Shard(last) if i in dims and shard
+        and (stop - start) % mesh.size(i) == 0 else q
+        for i, q in enumerate(piece.placements)])
 
 
 def pad(x, widths):
@@ -211,14 +270,6 @@ def pad(x, widths):
     return _on_shards(lambda t: F.pad(t, widths), x,
                       {d for d in range(x.ndim) if shape[d] != x.shape[d]},
                       shape)
-
-
-def cumsum(x, dim: int):
-    """``torch.cumsum(x, dim)``, on DTensors shard by shard."""
-    if not _is_dtensor(x):
-        return torch.cumsum(x, dim=dim)
-    return _on_shards(lambda t: torch.cumsum(t, dim=dim), x,
-                      {dim % x.ndim}, x.shape)
 
 
 def experts_local(fn, x, weights: dict, *args):
@@ -442,9 +493,9 @@ def init_attention(cfg: ArchConfig, generator: torch.Generator,
 def split_heads(y, heads: int, head_dim: int):
     """``y`` (..., heads * head_dim) as (..., heads, head_dim). On a
     DTensor, a mesh dim that shards the last dim but does not divide
-    ``heads`` is replicated first, as :func:`_heads_local` replicates it
-    for the attention body: DTensor cannot unflatten an uneven shard (the
-    reference's GSPMD lays one out itself)."""
+    ``heads`` is replicated first (:func:`_heads_local` then splits the
+    query rows or indexes the KV heads over it): DTensor cannot unflatten
+    an uneven shard (the reference's GSPMD lays one out itself)."""
     if _is_dtensor(y):
         from torch.distributed.tensor import Replicate
 
@@ -480,10 +531,114 @@ def _qkv(x, p, cfg: ArchConfig):
     return q, k, v
 
 
+# True while a layer body runs under a checkpoint of the whole layer
+# (``transformer.remat_layer``: remat "full" or "dots"), in its forward and
+# in its recompute alike.
+_REMAT = False
+
+
+def in_remat(body):
+    """``body`` (a layer) marked, while it runs, as rematerialized by its
+    backward (:data:`_REMAT`)."""
+    @functools.wraps(body)
+    def run(*args, **kwargs):
+        global _REMAT
+        outer, _REMAT = _REMAT, True
+        try:
+            return body(*args, **kwargs)
+        finally:
+            _REMAT = outer
+    return run
+
+
 # Chunked online-softmax attention: the same KV-blocking the flash kernel
 # implements, a loop over key chunks that never materializes (S, T) scores.
 ATTN_CHUNK = 1024
 _COL_SENTINEL = 2**30  # padded key slots: fails both validity and causality
+
+
+def _masked_scores(qf, kk, cc, rows_b, scale: float, window: int,
+                   causal: bool):
+    """One key chunk's f32 scores (B, Hq, S, C), -1e30 where a key is not
+    visible, and the visibility: keys ``kk`` (B, C, Hq, D) at global
+    positions ``cc`` (C,), queries ``qf`` at ``rows_b`` (1, 1, S, 1)."""
+    sc = torch.einsum("bshd,bchd->bhsc", qf, kk.float()) * scale
+    cc_b = cc[None, None, None, :]
+    pred = cc_b < _COL_SENTINEL
+    if causal:
+        pred = pred & (cc_b <= rows_b)
+        if window >= 0:
+            pred = pred & (rows_b - cc_b < window)
+    return torch.where(pred, sc, -1e30), pred
+
+
+def _online_softmax(q, k, v, rows, cols, window: int, causal: bool, c: int):
+    """:func:`_sdpa`'s loop over ``c``-key chunks: q (B, S, Hq, D), k and v
+    (B, T, Hq, D) with T a multiple of ``c``. Returns the rows' running
+    max and sum (B, Hq, S, 1) and the f32 output (B, Hq, S, D)."""
+    b, s, hq, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    rows_b = rows[None, None, :, None]  # (1,1,S,1)
+    qf = q.float()
+    m = torch.full((b, hq, s, 1), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hq, s, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hq, s, d), dtype=torch.float32, device=q.device)
+    for start in range(0, k.shape[1], c):
+        vv = v[:, start:start + c]
+        sc, _ = _masked_scores(qf, k[:, start:start + c],
+                               cols[start:start + c], rows_b, scale, window,
+                               causal)
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        p = torch.exp(sc - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bhsc,bchd->bhsd", p.to(vv.dtype).float(), vv.float())
+        m = m_new
+    return m, l, acc / torch.clamp(l, min=1e-20)
+
+
+class _Attention(torch.autograd.Function):
+    """:func:`_online_softmax`'s output under autograd, with the
+    flash-attention backward: the forward keeps q, k, v, the f32 output and
+    the rows' max and sum, and the backward recomputes each chunk's scores
+    and probabilities from them (the reference's ``jax.checkpoint(body,
+    nothing_saveable)``), never keeping a (B, Hq, S, C) tensor."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rows, cols, window: int, causal: bool,
+                c: int):
+        m, l, out = _online_softmax(q, k, v, rows, cols, window, causal, c)
+        ctx.save_for_backward(q, k, v, rows, cols, out, m, l)
+        ctx.args = (window, causal, c)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, rows, cols, out, m, l = ctx.saved_tensors
+        window, causal, c = ctx.args
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        rows_b = rows[None, None, :, None]
+        qf = q.float()
+        # softmax's backward: dS = P * (dP - rowsum(dO * O))
+        d_sum = (d_out * out).sum(dim=-1, keepdim=True)
+        dq = torch.zeros_like(qf)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        for start in range(0, k.shape[1], c):
+            kk, vv = k[:, start:start + c], v[:, start:start + c]
+            sc, pred = _masked_scores(qf, kk, cols[start:start + c], rows_b,
+                                      scale, window, causal)
+            p = torch.exp(sc - m) / l
+            dv[:, start:start + c] = torch.einsum(
+                "bhsc,bhsd->bchd", p.to(vv.dtype).float(), d_out)
+            # the forward cast the probabilities to v's dtype: their
+            # cotangent is rounded to it
+            dp = torch.einsum("bhsd,bchd->bhsc", d_out,
+                              vv.float()).to(vv.dtype).float()
+            ds = torch.where(pred, p * (dp - d_sum), 0.0) * scale
+            dq += torch.einsum("bhsc,bchd->bshd", ds, kk.float())
+            dk[:, start:start + c] = torch.einsum("bhsc,bshd->bchd", ds, qf)
+        return dq.to(q.dtype), dk, dv, None, None, None, None, None
 
 
 def _sdpa(q, k, v, rows, cols, window: int = -1, causal: bool = True):
@@ -492,8 +647,10 @@ def _sdpa(q, k, v, rows, cols, window: int = -1, causal: bool = True):
     ``window``: negative = unlimited; else sliding window.
     Returns (B, S, Hq*D) in q.dtype. Scores and the running state are f32;
     the probabilities are cast to v's dtype before the PV product, as the
-    reference's ``preferred_element_type=f32`` einsums do. On DTensors
-    each rank attends over its own rows and heads (:func:`_heads_local`).
+    reference's ``preferred_element_type=f32`` einsums do. Under autograd
+    the backward recomputes each chunk's scores and probabilities
+    (:class:`_Attention`). On DTensors each rank attends over its own rows
+    or heads (:func:`_heads_local`).
     """
     if _is_dtensor(q):
         return _heads_local(_sdpa, q, k, v, rows, cols, window, causal)
@@ -503,7 +660,6 @@ def _sdpa(q, k, v, rows, cols, window: int = -1, causal: bool = True):
     if group > 1:  # jnp.repeat's order: query head h reads KV head h // group
         k = k.repeat_interleave(group, dim=2)
         v = v.repeat_interleave(group, dim=2)
-    scale = 1.0 / math.sqrt(d)
     c = min(ATTN_CHUNK, t)
     pad = (-t) % c
     if pad:
@@ -512,29 +668,16 @@ def _sdpa(q, k, v, rows, cols, window: int = -1, causal: bool = True):
         cols = torch.cat([cols, torch.full((pad,), _COL_SENTINEL,
                                            dtype=cols.dtype,
                                            device=cols.device)])
-    rows_b = rows[None, None, :, None]  # (1,1,S,1)
-    qf = q.float()
-    m = torch.full((b, hq, s, 1), -1e30, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, hq, s, 1), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, hq, s, d), dtype=torch.float32, device=q.device)
-    for start in range(0, t + pad, c):
-        kk, vv = k[:, start:start + c], v[:, start:start + c]
-        cc_b = cols[start:start + c][None, None, None, :]
-        sc = torch.einsum("bshd,bchd->bhsc", qf, kk.float()) * scale
-        pred = cc_b < _COL_SENTINEL
-        if causal:
-            pred = pred & (cc_b <= rows_b)
-            if window >= 0:
-                pred = pred & (rows_b - cc_b < window)
-        sc = torch.where(pred, sc, -1e30)
-        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
-        p = torch.exp(sc - m_new)
-        alpha = torch.exp(m - m_new)
-        l = alpha * l + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + torch.einsum(
-            "bhsc,bchd->bhsd", p.to(vv.dtype).float(), vv.float())
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-20)
+    # In a layer its backward rematerializes (:func:`in_remat`), a single
+    # chunk keeps its tensors only while that layer's backward runs: the
+    # one chunk's worth a recompute of its own would rebuild there too (the
+    # reference's compiled step folds the two recomputes into one as well).
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (q, k, v)) and (t + pad > c
+                                                     or not _REMAT):
+        out = _Attention.apply(q, k, v, rows, cols, window, causal, c)
+    else:
+        out = _online_softmax(q, k, v, rows, cols, window, causal, c)[2]
     return out.transpose(1, 2).reshape(b, s, hq * d).to(q.dtype)
 
 

@@ -109,21 +109,31 @@ def _route_rows(logits, dtype, cfg: ArchConfig):
 
 def _dispatch(x_rep, slot, n_slots: int):
     """(B, Sk, D) tokens -> (B, n_slots, D) expert slot buffer: a scatter
-    into ``n_slots + 1`` rows, the last catching every dropped token."""
+    into ``n_slots + 1`` rows, the last catching every dropped token. On
+    DTensors each rank scatters its own rows (``by_rows``): no rank holds
+    another's rows of the buffer."""
+    return L.shard_act(L.by_rows(_scatter_rows, x_rep, slot, n_slots))
+
+
+def _scatter_rows(x_rep, slot, n_slots: int):
     b, _, d = x_rep.shape
     buf = x_rep.new_zeros((b, n_slots + 1, d))
     buf.scatter_(1, slot[..., None].expand(-1, -1, d), x_rep)
-    return L.shard_act(buf[:, :n_slots])
+    return buf[:, :n_slots]
 
 
 def _combine(out_flat, slot, n_slots: int):
     """(B, n_slots, D) expert outputs -> (B, Sk, D) per-token outputs, zero
-    for a dropped token."""
+    for a dropped token; on DTensors each rank gathers its own rows."""
+    return L.shard_act(L.by_rows(_gather_rows, out_flat, slot, n_slots))
+
+
+def _gather_rows(out_flat, slot, n_slots: int):
     keep = (slot < n_slots)[..., None]
     idx = torch.clamp(slot, max=n_slots - 1)[..., None]
     g = torch.gather(out_flat, 1, idx.expand(-1, -1, out_flat.shape[-1]))
-    return L.shard_act(torch.where(keep, g, torch.zeros((), dtype=g.dtype,
-                                                        device=g.device)))
+    return torch.where(keep, g, torch.zeros((), dtype=g.dtype,
+                                            device=g.device))
 
 
 def _expert_mlp(expert_in, we: dict):

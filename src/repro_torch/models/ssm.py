@@ -76,6 +76,37 @@ def causal_conv(x, w, b):
     return out + b.to(x.dtype)
 
 
+def _ssd_local(xdt, da, b_mat, c_mat, chunk: int):
+    """:func:`ssd_chunked` (independent per batch row and per head; B and
+    C shared by the heads). On DTensors it runs on each rank's shard: the
+    batch keeps its shards, the heads keep the mesh dim that shards
+    ``xdt``'s heads (``da``'s laid out with them), B and C are taken whole
+    and return their gradients as partial sums over that mesh dim, every
+    other mesh dim replicates. DTensor never sees the SSD's own einsums
+    (its three-operand einsum views a non-contiguous local shard)."""
+    if not L._is_dtensor(xdt):
+        return ssd_chunked(xdt, da, b_mat, c_mat, chunk)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = xdt.device_mesh
+    xp, bcp, bcg, fp = [], [], [], []  # fp: the final state's layout
+    for p in xdt.placements:
+        if p.is_shard(0):
+            layout = (Shard(0), Shard(0), Shard(0), Shard(0))
+        elif p.is_shard(2):
+            layout = (Shard(2), Replicate(), Partial(), Shard(1))
+        else:
+            layout = (Replicate(), Replicate(), Replicate(), Replicate())
+        for placements, q in zip((xp, bcp, bcg, fp), layout):
+            placements.append(q)
+    y, final = ssd_chunked(L._local(xdt, mesh, xp), L._local(da, mesh, xp),
+                           L._local(b_mat, mesh, bcp, bcg),
+                           L._local(c_mat, mesh, bcp, bcg), chunk)
+    bsz, _, h, p_dim = xdt.shape
+    return (L._from_local(y, mesh, xp, xdt.shape),
+            L._from_local(final, mesh, fp, (bsz, h, p_dim, b_mat.shape[-1])))
+
+
 def ssd_chunked(xdt, da, b_mat, c_mat, chunk: int, init_state=None):
     """Chunk-parallel SSD (Mamba-2, alg. from arXiv:2405.21060 §6).
 
@@ -86,17 +117,17 @@ def ssd_chunked(xdt, da, b_mat, c_mat, chunk: int, init_state=None):
     q = min(chunk, l)
     pad = (-l) % q
     if pad:
-        xdt = L.pad(xdt, (0, 0, 0, 0, 0, pad))
-        da = L.pad(da, (0, 0, 0, pad))
-        b_mat = L.pad(b_mat, (0, 0, 0, pad))
-        c_mat = L.pad(c_mat, (0, 0, 0, pad))
+        xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
+        da = F.pad(da, (0, 0, 0, pad))
+        b_mat = F.pad(b_mat, (0, 0, 0, pad))
+        c_mat = F.pad(c_mat, (0, 0, 0, pad))
     nc = (l + pad) // q
     dtype = xdt.dtype
     xc = xdt.reshape(bsz, nc, q, h, p)
     bc = b_mat.reshape(bsz, nc, q, n)
     cc = c_mat.reshape(bsz, nc, q, n)
     dac = da.reshape(bsz, nc, q, h).permute(0, 1, 3, 2)       # (B,nc,H,Q)
-    cs = L.cumsum(dac.float(), dim=-1)
+    cs = torch.cumsum(dac.float(), dim=-1)
 
     # intra-chunk (quadratic within chunk)
     seg = cs[..., :, None] - cs[..., None, :]                 # (B,nc,H,Q,Q)
@@ -123,14 +154,48 @@ def ssd_chunked(xdt, da, b_mat, c_mat, chunk: int, init_state=None):
     return y[:, :l], s
 
 
-def _split_proj(zxbcdt, cfg: ArchConfig):
+# in_proj's five outputs, in its column order, and whether each is laid
+# out over the model axis (the wide z and x) or computed whole on every
+# rank (the narrow B, C and dt)
+_PIECES = (("z", True), ("x", True), ("b", False), ("c", False),
+           ("dt", False))
+
+
+def _columns(cfg: ArchConfig) -> dict:
+    """Each in_proj output's (start, stop) columns; x's, B's and C's, less
+    d_in, are also their columns of conv_w and conv_b."""
     d_in, h, n = _dims(cfg)
-    z = zxbcdt[..., :d_in]
-    xs = zxbcdt[..., d_in:2 * d_in]
-    b_mat = zxbcdt[..., 2 * d_in:2 * d_in + n]
-    c_mat = zxbcdt[..., 2 * d_in + n:2 * d_in + 2 * n]
-    dt = zxbcdt[..., 2 * d_in + 2 * n:]
-    return z, xs, b_mat, c_mat, dt
+    widths = (d_in, d_in, n, n, h)
+    stops = [sum(widths[:i + 1]) for i in range(len(widths))]
+    return {name: (stop - w, stop)
+            for (name, _), w, stop in zip(_PIECES, widths, stops)}
+
+
+def _in_proj(x, lp, cfg: ArchConfig):
+    """``x @ in_proj`` as its five outputs z, x, B, C, dt. On DTensors
+    whose rank holds more tokens than the weight has rows (train,
+    prefill), each is the product with its own columns of the weight
+    (:func:`~repro_torch.models.layers.columns`): each slice of a
+    model-sharded product would gather the product whole, and the weight
+    is the smaller to gather. Else (a decode step) the product is sliced."""
+    w = lp["in_proj"].to(x.dtype)
+    cols = _columns(cfg)
+    if L._is_dtensor(x) and (x.to_local().numel() // x.shape[-1]
+                             > w.shape[-2]):
+        return tuple(x @ L.columns(w, *cols[name], shard)
+                     for name, shard in _PIECES)
+    zxbcdt = x @ w
+    return tuple(zxbcdt[..., start:stop] for start, stop in cols.values())
+
+
+def _conv_piece(u, lp, cfg: ArchConfig, name: str):
+    """The depthwise causal conv and SiLU of one conv input (x, B or C),
+    with its columns of ``conv_w`` and ``conv_b``."""
+    d_in = _dims(cfg)[0]
+    start, stop = (c - d_in for c in _columns(cfg)[name])
+    shard = dict(_PIECES)[name]
+    return F.silu(causal_conv(u, L.columns(lp["conv_w"], start, stop, shard),
+                              L.columns(lp["conv_b"], start, stop, shard)))
 
 
 def _ssm_seq(x, lp, cfg: ArchConfig, round_dt: bool):
@@ -138,16 +203,15 @@ def _ssm_seq(x, lp, cfg: ArchConfig, round_dt: bool):
     conv_tail, final_state): the last ``conv_kernel - 1`` conv inputs and
     the SSM state after the last token, the decode cache's entries.
     ``round_dt``: dt is rounded to x's dtype before ``dt * A``, as the
-    reference's ``ssm_block`` does and its ``prefill`` does not."""
-    d_in, h, n = _dims(cfg)
-    zxbcdt = x @ lp["in_proj"].to(x.dtype)
-    z, xs, b_mat, c_mat, dt = _split_proj(zxbcdt, cfg)
-    conv_in = torch.cat([xs, b_mat, c_mat], dim=-1)
-    conv_out = F.silu(causal_conv(conv_in, lp["conv_w"], lp["conv_b"]))
-    conv_tail = conv_in[:, -(cfg.conv_kernel - 1):]
-    xs = conv_out[..., :d_in]
-    b_mat = conv_out[..., d_in:d_in + n]
-    c_mat = conv_out[..., d_in + n:]
+    reference's ``ssm_block`` does and its ``prefill`` does not. The conv
+    is depthwise, so x, B and C are convolved each by itself."""
+    h = _dims(cfg)[1]
+    z, xs, b_mat, c_mat, dt = _in_proj(x, lp, cfg)
+    tail = -(cfg.conv_kernel - 1)
+    conv_tail = torch.cat([xs[:, tail:], b_mat[:, tail:], c_mat[:, tail:]],
+                          dim=-1)
+    xs, b_mat, c_mat = (_conv_piece(u, lp, cfg, name) for u, name in
+                        ((xs, "x"), (b_mat, "b"), (c_mat, "c")))
     dt = F.softplus(dt.float() + lp["dt_bias"])               # (B,S,H) f32
     if round_dt:
         dt = dt.to(x.dtype).float()
@@ -155,7 +219,7 @@ def _ssm_seq(x, lp, cfg: ArchConfig, round_dt: bool):
     da = dt * a                                               # (B,S,H)
     xh = L.split_heads(xs, h, cfg.ssm_head_dim)
     xdt = xh * dt.to(x.dtype)[..., None]
-    y, final = ssd_chunked(xdt, da, b_mat, c_mat, cfg.ssm_chunk)
+    y, final = _ssd_local(xdt, da, b_mat, c_mat, cfg.ssm_chunk)
     y = y + xh * lp["d_skip"].to(x.dtype)[:, None]
     y = L.merge_heads(y)
     y = L.rms_norm(y * F.silu(z), lp["gate_norm"], cfg.norm_eps)
@@ -204,8 +268,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
 def _ssm_block_decode(x, lp, cfg: ArchConfig, conv_c, state):
     """x (B, D) single token. Returns (out, conv_c, state)."""
     d_in, h, n = _dims(cfg)
-    zxbcdt = x @ lp["in_proj"].to(x.dtype)
-    z, xs, b_mat, c_mat, dt = _split_proj(zxbcdt, cfg)
+    z, xs, b_mat, c_mat, dt = _in_proj(x, lp, cfg)
     conv_in = torch.cat([xs, b_mat, c_mat], dim=-1)           # (B, conv_dim)
     window = torch.cat([conv_c, conv_in[:, None]], dim=1)     # (B,K,C)
     w = lp["conv_w"].to(x.dtype)

@@ -117,7 +117,7 @@ def remat_layer(body, remat: str):
     if remat == "dots":
         kwargs["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_dots)
-    return functools.partial(checkpoint, body, **kwargs)
+    return functools.partial(checkpoint, L.in_remat(body), **kwargs)
 
 
 class Model(ParamTree):

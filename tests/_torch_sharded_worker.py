@@ -5,9 +5,11 @@ by name, so it imports torch and the port only (not JAX).
 Rank 0 writes what the ranks computed (full values, numpy) to
 ``<out>/result.pt``; the test holds it against the reference. Last, the
 same four ranks as one (1, 4) row run a step whose model axis does not
-divide the KV heads, held against the unsharded step.
+divide the KV heads, then one whose model axis divides neither head count,
+each held against the unsharded step.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -92,14 +94,14 @@ def _train(arch, weights, opt_cfg, mesh, gather: bool):
     return result, state, state_sh
 
 
-def _uneven_heads(weights, opt_cfg) -> dict:
-    """One ``jit_train_step`` of ``granite_3_2b.reduced()`` (2 KV heads)
-    on the four ranks laid out as one (1, 4) ("data", "model") row, where
-    the model axis does not divide the KV heads, against the unsharded
+def _uneven_heads(cfg, weights, opt_cfg) -> dict:
+    """One ``jit_train_step`` of ``cfg`` (a ``granite_3_2b.reduced()``) on
+    the four ranks laid out as one (1, 4) ("data", "model") row, where the
+    model axis does not divide the KV heads (and, with 6 query heads, not
+    the query heads either: the query rows split), against the unsharded
     step from the same weights and batch."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.models import layers as L
     from repro_torch.models.model_zoo import build, from_numpy_params
@@ -107,7 +109,6 @@ def _uneven_heads(weights, opt_cfg) -> dict:
     from repro_torch.optim.tree import leaves
     from repro_torch.runtime.train_loop import jit_train_step, make_train_step
 
-    cfg = get_config("granite_3_2b").reduced()
     mesh = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
     L.set_activation_sharding(("data",), 1, "model", 4)
     bundle = build(cfg, remat="none", device="cpu")
@@ -130,7 +131,7 @@ def _uneven_heads(weights, opt_cfg) -> dict:
         cond = (v / (1 - opt_cfg.b2)).sqrt() <= 100 * opt_cfg.eps
         well.append(float(diff[~cond].max()) if (~cond).any() else 0.0)
         ill.append(float(diff[cond].max()) if cond.any() else 0.0)
-    return {"kv_heads": cfg.n_kv_heads,
+    return {"kv_heads": cfg.n_kv_heads, "q_heads": cfg.n_heads,
             "loss": float(m0["loss"]), "sharded_loss": float(m1["loss"]),
             "grad_norm": float(m0["grad_norm"]),
             "sharded_grad_norm": float(m1["grad_norm"]),
@@ -148,9 +149,9 @@ def run(rank: int, world: int, store_path: str, out: str, weights: dict,
         from repro_torch.checkpoint.checkpoint import CheckpointManager
         from repro_torch.configs import get_config
         from repro_torch.models import layers as L
-        from repro_torch.models.model_zoo import from_numpy_params
+        from repro_torch.models.model_zoo import build, from_numpy_params
         from repro_torch.optim import adamw, compression
-        from repro_torch.optim.tree import leaves
+        from repro_torch.optim.tree import leaves, nest
         from repro_torch.runtime import sharding as sh
 
         mesh = init_device_mesh("cpu", (2, 2),
@@ -190,7 +191,16 @@ def run(rank: int, world: int, store_path: str, out: str, weights: dict,
         gathered = [None] * world
         dist.all_gather_object(gathered, out_ar)
         res["all_reduce"] = gathered
-        res["uneven_heads"] = _uneven_heads(weights["granite_3_2b"], opt_cfg)
+        cfg = get_config("granite_3_2b").reduced()
+        res["uneven_heads"] = _uneven_heads(cfg, weights["granite_3_2b"],
+                                            opt_cfg)
+        # six query heads: the (1, 4) model axis splits the query rows
+        cfg = dataclasses.replace(cfg, n_heads=6)
+        drawn = build(cfg, device="cpu").init(
+            torch.Generator().manual_seed(0))
+        res["row_split"] = _uneven_heads(
+            cfg, nest({n: p.detach().numpy()
+                       for n, p in drawn.named_parameters()}), opt_cfg)
         L.clear_activation_sharding()
         if rank == 0:
             torch.save(res, os.path.join(out, "result.pt"))

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``src/repro_torch`` (the
 training, sharding and dry-run paths' among them) and every module ``chip_smoke.py`` and
-``examples/quickstart_torch.py`` name in an import (inside ``main`` too)
+the port's examples (``examples/*_torch.py``) name in an import (inside
+``main`` too)
 loads neither ``jax`` nor any module of the JAX package ``repro``. Checked
 in a fresh interpreter, so that what other tests imported does not
 count."""
@@ -18,9 +19,11 @@ for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(mod.name)
 import ast
 # chip_smoke.py imports most modules inside main(): import each it names,
-# and each the example names
+# and each the examples name
 trees = []
-for path in ("chip_smoke.py", "examples/quickstart_torch.py"):
+for path in ("chip_smoke.py", "examples/quickstart_torch.py",
+             "examples/train_lm_torch.py", "examples/serve_lm_torch.py",
+             "examples/tune_workload_torch.py"):
     with open(path) as f:
         trees.append(ast.parse(f.read()))
 for node in (n for tree in trees for n in ast.walk(tree)):

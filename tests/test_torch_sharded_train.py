@@ -262,6 +262,20 @@ def test_kv_heads_the_model_axis_does_not_divide(sharded):
     assert got["max_ill_param_diff"] <= 2 * OPT.lr, got
 
 
+def test_query_heads_the_model_axis_does_not_divide(sharded):
+    """``granite_3_2b.reduced()`` with 6 query heads (2 KV heads) on the
+    four ranks as one (1, 4) row: "model" divides neither head count, so
+    each rank attends over its 4 of the 16 query rows against the whole
+    K/V (``layers._heads_local``). Held to the unsharded step as
+    :func:`test_kv_heads_the_model_axis_does_not_divide` holds its case."""
+    got = sharded[0]["row_split"]
+    assert got["q_heads"] % 4 and got["kv_heads"] % 4
+    for key in ("loss", "grad_norm"):
+        assert abs(got[f"sharded_{key}"] - got[key]) <= 1e-6, (key, got)
+    assert got["max_param_diff"] <= 3e-5, got
+    assert got["max_ill_param_diff"] <= 2 * OPT.lr, got
+
+
 def test_meta_state_draws_nothing():
     """``build(..., device="meta")`` and ``init_train_state`` give
     Moonshot-v1-16B-A3B's state (115.6 GB of f32 masters, twice that in

@@ -8,8 +8,8 @@ weights and ``make_batch`` batch.
 
 Prints one JSON line per family (the differences, the first step's
 seconds on rank 0) and exits 1 if a loss or grad norm is off rtol 1e-4 /
-atol 1e-5. About a minute: DTensor's first-step sharding propagation
-takes 5-14 s a family in each rank.
+atol 1e-5. About 30 s: DTensor's first-step sharding propagation
+takes 1-4 s a family in each rank.
 
 Run:  python tools/sharded_families_check.py
 """
