@@ -1,6 +1,10 @@
 """The ranks of tests/test_torch_sharded_train.py: four spawned processes
 on a gloo 2x2 ("data", "model") mesh. Spawned workers import this module
-by name, so it imports torch and the port only (not JAX).
+by name, so it imports torch and the port only (not JAX). The weights
+come in a file, not as arguments: a spawned process reads its arguments
+only once it has imported this module (and torch), and the parent's
+write of them blocks until it does, so large arguments start the ranks
+one after another.
 
 Rank 0 writes what the ranks computed (full values, numpy) to
 ``<out>/result.pt``; the test holds it against the reference. Last, the
@@ -17,13 +21,15 @@ import torch
 import torch.distributed as dist
 
 SEQ, BATCH = 16, 4
-STEPS = {"granite_3_2b": 2, "qwen2_moe_a2_7b": 1}
+STEPS = {"granite_3_2b": 2, "qwen2_moe_a2_7b": 1, "mamba2_780m": 1,
+         "recurrentgemma_2b": 1, "whisper_tiny": 1}
 
 
 # (arch, with param_gather_specs): the dense family without and with the
-# ZeRO-3 gather, then the MoE family
+# ZeRO-3 gather, then the MoE, SSM, hybrid and encoder-decoder families
 CASES = (("granite_3_2b", False), ("granite_3_2b", True),
-         ("qwen2_moe_a2_7b", False))
+         ("qwen2_moe_a2_7b", False), ("mamba2_780m", False),
+         ("recurrentgemma_2b", False), ("whisper_tiny", False))
 
 
 def _numpy(tree):
@@ -138,9 +144,10 @@ def _uneven_heads(cfg, weights, opt_cfg) -> dict:
             "max_param_diff": max(well), "max_ill_param_diff": max(ill)}
 
 
-def run(rank: int, world: int, store_path: str, out: str, weights: dict,
+def run(rank: int, world: int, store_path: str, out: str, weights_path: str,
         opt_cfg, seeds) -> None:
     torch.set_num_threads(1)
+    weights = torch.load(weights_path, weights_only=False)
     dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
                             rank=rank, world_size=world)
     try:

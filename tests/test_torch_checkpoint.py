@@ -6,6 +6,7 @@ the other, and the restored models compute the same logits — for the vlm
 model and for a moe (stacked experts) and a hybrid (units and a tail) one."""
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -92,14 +93,22 @@ def test_checkpoint_property_roundtrip(tmp_path_factory, seed):
     assert torch.equal(restored["seq"][0], tree["seq"][0])
 
 
-def _pair(arch="qwen2_vl_7b"):
-    """The reference's bundle (its forward jitted) and random parameters,
-    and the port's bundle and its own (different) random parameters."""
+@functools.lru_cache(maxsize=None)
+def _reference(arch):
+    """The reference's bundle (its forward jitted, so compiled once for
+    the file's cases) and random parameters (immutable JAX arrays)."""
     rb = ref_build(ref_get_config(arch).reduced(), remat="none")
     rb = dataclasses.replace(rb, forward=jax.jit(rb.forward))
+    return rb, rb.init(jax.random.key(3))
+
+
+def _pair(arch="qwen2_vl_7b"):
+    """The reference's bundle and random parameters, and the port's bundle
+    and its own (different) random parameters, made anew (a restore loads
+    them in place)."""
     port = build(get_config(arch).reduced(), remat="none", device="cpu")
-    return rb, rb.init(jax.random.key(3)), port, port.init(
-        torch.Generator().manual_seed(3))
+    return (*_reference(arch), port,
+            port.init(torch.Generator().manual_seed(3)))
 
 
 def _logits_equal(rb, rp, port, params):

@@ -7,10 +7,10 @@ the port is held against its parts: ``input_specs`` and ``model_flops``
 for every cell, the report's tables on one hand-made results dict, and
 the reduced Granite train step's per-device flops on a one-device mesh
 against ``hlo_analysis`` of the reference's step (Auto axes, as
-``tests/test_torch_sharded_train.py`` gives them). Then ``build_cell``
-traces a train, a prefill and a decode cell of one architecture of each
-family at ``reduced()`` on the fake 16x16 mesh, ``SHAPES`` shrunk.
-Every test leaves no process group behind.
+``tests/test_torch_sharded_train.py`` gives them). The
+``test_torch_dryrun_cells_*`` files trace a train, a prefill and a decode
+cell of one architecture of each family at ``reduced()`` on the fake 16x16
+mesh. Every test leaves no process group behind.
 """
 
 import os
@@ -36,13 +36,6 @@ from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 
 # the XLA backend at optimization level 0 (tests/_torch_jax.py's fast_jit)
 FAST = {"xla_backend_optimization_level": 0}
-FAMILY_ARCHS = ("granite_3_2b", "qwen2_moe_a2_7b", "mamba2_780m",
-                "recurrentgemma_2b", "whisper_tiny", "qwen2_vl_7b")
-# SHAPES shrunk for the reduced configs on the 16x16 mesh: each batch
-# still divides the data axis (a microbatch of qwen2_vl's two too)
-SMALL = {"train_4k": ShapeSpec("train_4k", 32, 32, "train"),
-         "prefill_32k": ShapeSpec("prefill_32k", 32, 16, "prefill"),
-         "decode_32k": ShapeSpec("decode_32k", 32, 16, "decode")}
 
 
 @pytest.fixture(scope="module")
@@ -139,25 +132,6 @@ def test_report_tables_equal_the_reference():
     assert len(got) == len(want)
     assert [g for g, w in zip(got, want) if g != w] == [
         "- max per-device memory: 3.00 GiB (the H100's 85.02 GB)"]
-
-
-@pytest.mark.parametrize("arch", FAMILY_ARCHS)
-def test_cells_trace_on_the_production_mesh(arch, monkeypatch):
-    """A train, a prefill and a decode cell at reduced() on the fake 16x16
-    mesh: each traces, counts its per-device work and gathers."""
-    monkeypatch.setattr(dryrun, "get_config",
-                        lambda a: get_config(a).reduced())
-    for name, shape in SMALL.items():
-        monkeypatch.setitem(SHAPES, name, shape)
-    for name in SMALL:
-        rec = dryrun.run_cell(arch, name, multi_pod=False)
-        assert rec["ok"], (name, rec.get("traceback"))
-        a, mem = rec["analysis"], rec["memory"]
-        assert a["flops"] > 0 and a["bytes"] > 0, name
-        assert a["collective_counts"].get("all-gather", 0) > 0, name
-        assert 0 < mem["argument_bytes"] <= mem["peak_estimate_bytes"], name
-        assert rec["roofline"]["dominant"] in ("compute", "memory",
-                                               "collective")
 
 
 def test_one_device_step_flops_against_the_reference(ref_dryrun,

@@ -7,7 +7,10 @@ batches:
 - (a) two steps of ``jit_train_step`` at ``granite_3_2b.reduced()``,
   without and with ``param_gather_specs`` (ZeRO-3: the gather's gradients
   come back in the storage placements);
-- (b) one step at ``qwen2_moe_a2_7b.reduced()`` (experts over "model");
+- (b) one step at ``qwen2_moe_a2_7b.reduced()`` (experts over "model"),
+  and one each at ``mamba2_780m``, ``recurrentgemma_2b`` and
+  ``whisper_tiny`` ``reduced()`` (the SSM, hybrid and encoder-decoder
+  families; Whisper's batch carries frames beside the tokens);
 - (c) elastic restore: the state saved under 2x2 restores onto 2x2 (its
   placements kept) and onto one device, equal to what was saved;
 - (d) ``compressed_all_reduce`` over the four ranks, bit-equal to the
@@ -60,7 +63,7 @@ from repro_torch.runtime import train_loop  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 OPT = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10, weight_decay=0.1)
-ARCHS = ("granite_3_2b", "qwen2_moe_a2_7b")
+ARCHS = tuple(dict.fromkeys(arch for arch, _ in worker.CASES))
 SEEDS = ((0, "float32"), (1, "bfloat16"))
 # the XLA backend at optimization level 0 (tests/_torch_jax.py's fast_jit)
 FAST = {"xla_backend_optimization_level": 0}
@@ -104,11 +107,11 @@ def _reference(arch, gather):
             is_leaf=lambda x: isinstance(x, P))
     step = ref_train_loop.make_train_step(rb, OPT, param_gather_specs=specs)
     state = {"params": params, "opt": ref_adamw.init(params)}
-    jitted, _, _ = ref_train_loop.jit_train_step(
-        step, state, mesh, {"tokens": 2})
     batches = [rb.make_batch(i, ShapeSpec("t", worker.SEQ, worker.BATCH,
                                           "train"))
                for i in range(worker.STEPS[arch])]
+    jitted, _, _ = ref_train_loop.jit_train_step(
+        step, state, mesh, {k: v.ndim for k, v in batches[0].items()})
     metrics = []
     with jax.set_mesh(mesh):  # the gather's specs name the mesh's axes
         compiled = jitted.lower(state, batches[0]).compile(FAST)
@@ -154,7 +157,8 @@ def sharded(tmp_path_factory):
     here (on the same ``make_batch`` batches); join them with a timeout.
     Returns (ranks' result, references, checkpoint directory)."""
     out = str(tmp_path_factory.mktemp("sharded"))
-    weights = {arch: _weights(arch) for arch in ARCHS}
+    weights = os.path.join(out, "weights.pt")
+    torch.save({arch: _weights(arch) for arch in ARCHS}, weights)
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=worker.run,
                          args=(rank, 4, os.path.join(out, "store"), out,
@@ -185,7 +189,10 @@ def _leaf_names(arch):
 
 CASE_IDS = {("granite_3_2b", False): "dense",
             ("granite_3_2b", True): "dense-zero3",
-            ("qwen2_moe_a2_7b", False): "moe"}
+            ("qwen2_moe_a2_7b", False): "moe",
+            ("mamba2_780m", False): "ssm",
+            ("recurrentgemma_2b", False): "hybrid",
+            ("whisper_tiny", False): "encdec"}
 
 
 @pytest.mark.parametrize(

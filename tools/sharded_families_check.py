@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
-"""The sharded train step of the families tier-1 does not hold (SSM,
-hybrid, encoder-decoder; the test file holds the dense and MoE ones): four
-CPU processes on a gloo 2x2 ("data", "model") mesh run one
-``jit_train_step`` of each at ``reduced()`` in f32, and the loss, grad norm
-and new parameters are compared with the unsharded step from the same
-weights and ``make_batch`` batch.
+"""The sharded train step of the SSM, hybrid and encoder-decoder families
+against the port's own unsharded step: four CPU processes on a gloo 2x2
+("data", "model") mesh run one ``jit_train_step`` of each at ``reduced()``
+in f32, and the loss, grad norm and new parameters are compared with the
+unsharded step from the same weights and ``make_batch`` batch.
+
+Tier-1 holds the same three steps against the reference's
+``jit_train_step`` (``tests/test_torch_sharded_train.py``, cases ``ssm``,
+``hybrid`` and ``encdec`` of ``test_step_metrics_match_reference`` and
+``test_state_matches_reference``); this script is the quick standalone
+check, with the first step's seconds.
 
 Prints one JSON line per family (the differences, the first step's
 seconds on rank 0) and exits 1 if a loss or grad norm is off rtol 1e-4 /
