@@ -1285,9 +1285,8 @@ BF16_PEAK = PEAK_OPS["bfloat16"]
 
 def profile_train_step(trainer, label: str) -> dict:
     """One more step of ``trainer`` under torch.profiler: the card's
-    operations, their summed time, the optimizer update's card time (the
-    ``adamw.update`` range), against the step's wall time unprofiled (the
-    step before it)."""
+    operations and their summed time, against the step's wall time
+    unprofiled (the step before it)."""
     import torch
 
     trainer.run(1)
@@ -1300,18 +1299,13 @@ def profile_train_step(trainer, label: str) -> dict:
     events = prof.events()
     on_card = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and e.name != "adamw.update"]
+               and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.device_time for e in on_card) / 1e6
-    opt = [e.device_time_total for e in events if e.name == "adamw.update"
-           and e.device_type == torch.autograd.DeviceType.CPU]
-    opt_ms = max(opt) / 1e3 if opt else float("nan")
     print(f"  {label}: {len(on_card)} operations on the card, "
           f"{busy * 1e3:.3f} ms of device time in a {wall * 1e3:.3f} ms "
-          f"step (unprofiled): the card idles {1 - busy / wall:.1%} of it; "
-          f"the optimizer update {opt_ms:.3f} ms of device time")
+          f"step (unprofiled): the card idles {1 - busy / wall:.1%} of it")
     return {"ops": len(on_card), "card_ms": busy * 1e3,
-            "wall_ms": wall * 1e3, "opt_ms": opt_ms}
+            "wall_ms": wall * 1e3}
 
 
 def granite_training(card_line: str) -> list[float]:
@@ -1400,7 +1394,7 @@ def granite_training(card_line: str) -> list[float]:
     none_peak, none_ms = torch.cuda.max_memory_allocated(), \
         trainer.records[-1].wall_s * 1e3
     calibration = dict(analyze_card_step(trainer), card_ms=unbound["card_ms"],
-                       opt_ms=unbound["opt_ms"], peak=peak)
+                       peak=peak)
     trainer.train_step = make_train_step(build(cfg, remat="full"),
                                          trainer.opt_cfg)
     # the first checkpointed step in a process pays torch's one-time import
@@ -1844,8 +1838,7 @@ def dryrun_calibration(card_line: str, calibration: dict) -> None:
     print(f"      t_compute {t_compute * 1e3:.3f} ms, t_memory "
           f"{t_memory * 1e3:.3f} ms, max {max(t_compute, t_memory) * 1e3:.3f}"
           f" ms against phase 9's profiled card time "
-          f"{calibration['card_ms']:.3f} ms (the optimizer's range "
-          f"{calibration['opt_ms']:.3f} ms); peak estimate "
+          f"{calibration['card_ms']:.3f} ms; peak estimate "
           f"{calibration['memory']['peak_estimate_bytes'] / 1e9:.2f} GB "
           f"(traced {traced['memory']['peak_estimate_bytes'] / 1e9:.2f}) "
           f"against this step's max_memory_allocated "

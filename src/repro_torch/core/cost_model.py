@@ -22,6 +22,7 @@ import math
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core import space as space_lib
 from repro_torch.core.hardware import HardwareConfig
 from repro_torch.core.workload import Workload
@@ -129,7 +130,8 @@ class RidgeCostModel:
         if not self.fitted:
             return 0.0
         if self._dirty or self._w is None:
-            self._refit()
+            with tracing.span("cost_model.refit"):
+                self._refit()
         xs = (np.asarray(feats, dtype=np.float64) - self._mu) / self._sd
         return float(xs @ self._w + self._ymean)
 

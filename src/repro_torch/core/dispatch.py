@@ -43,6 +43,7 @@ concretizes through the memoized ``space.concretize`` and any
 
 from __future__ import annotations
 
+from repro_torch import tracing
 from repro_torch.core import space as space_lib
 from repro_torch.core import traffic as traffic_lib
 from repro_torch.core.database import TuningDatabase, global_database
@@ -168,13 +169,14 @@ def kernel_params(workload: Workload, hw: HardwareConfig = H100,
                   database: TuningDatabase | None = None,
                   allow_fixed: bool = True, allow_bucketed: bool = True,
                   traffic=None, count: int = 1):
-    sched, provenance = best_schedule(workload, hw, database,
-                                      allow_fixed=allow_fixed,
-                                      allow_bucketed=allow_bucketed,
-                                      traffic=traffic, count=count)
-    if sched is None:
-        return None, provenance
-    return space_lib.concretize(workload, hw, sched), provenance
+    with tracing.span("dispatch.kernel_params"):
+        sched, provenance = best_schedule(workload, hw, database,
+                                          allow_fixed=allow_fixed,
+                                          allow_bucketed=allow_bucketed,
+                                          traffic=traffic, count=count)
+        if sched is None:
+            return None, provenance
+        return space_lib.concretize(workload, hw, sched), provenance
 
 
 def ensure_tuned(ops, hw: HardwareConfig = H100,

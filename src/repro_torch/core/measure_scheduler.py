@@ -71,6 +71,7 @@ import time
 from collections import deque
 from typing import Any, Sequence
 
+from repro_torch import tracing
 from repro_torch.core import static_analysis as static_lib
 from repro_torch.core.schedule import Schedule
 from repro_torch.core.workload import Workload
@@ -88,12 +89,16 @@ class MeasureTicket:
     material for span-accurate overlap accounting. Backends fulfil a ticket
     with :meth:`_complete` (latencies aligned with the submitted schedules)
     or :meth:`_fail` (an exception ``result()`` re-raises, e.g. a kernel
-    fault on the card).
+    fault on the card). ``batch_id`` names the batch in the measuring
+    thread's ``measure_scheduler.batch`` span, as the submitter's propose
+    and reconcile spans name it.
     """
 
-    def __init__(self, workload: Workload, schedules: Sequence[Schedule]):
+    def __init__(self, workload: Workload, schedules: Sequence[Schedule],
+                 batch_id: Any = None):
         self.workload = workload
         self.schedules = list(schedules)
+        self.batch_id = batch_id
         self.t_start: float | None = None  # measurement actually began
         self.t_end: float | None = None
         self._event = threading.Event()
@@ -249,8 +254,10 @@ class SerialMeasureQueue:
                 return
             ticket._mark_started()
             try:
-                lats = _run_batch(self.runner, ticket.workload,
-                                  ticket.schedules)
+                with tracing.span("measure_scheduler.batch", cpu=True,
+                                  batch=ticket.batch_id):
+                    lats = _run_batch(self.runner, ticket.workload,
+                                      ticket.schedules)
             except BaseException as e:  # surfaced at ticket.result()
                 ticket._fail(e)
             else:
@@ -258,10 +265,11 @@ class SerialMeasureQueue:
 
     def submit_batch(self, workload: Workload,
                      schedules: Sequence[Schedule],
-                     priority: int = 0) -> MeasureTicket:
+                     priority: int = 0,
+                     batch_id: Any = None) -> MeasureTicket:
         if self._closed:
             raise RuntimeError("measurement queue is closed")
-        ticket = MeasureTicket(workload, schedules)
+        ticket = MeasureTicket(workload, schedules, batch_id)
         self._ensure_thread()
         self._q.put((-int(priority), next(self._seq), ticket))
         return ticket
@@ -309,8 +317,9 @@ class _Entry:
 class MeasureScheduler:
     """Hold measurement batches from several submitters in flight at once.
 
-    ``submit(key, workload, schedules, priority=0)`` pushes one batch for
-    submitter ``key`` (a driver index, a baseline slot, ...);
+    ``submit(key, workload, schedules, priority=0, batch_id=None)`` pushes
+    one batch for submitter ``key`` (a driver index, a baseline slot, ...),
+    ``batch_id`` naming it in the measuring thread's span;
     ``collect_next()`` blocks for the next reconcilable batch and returns
     ``(key, batch, latencies, wait_s, measure_s)``. Ordering guarantees:
 
@@ -389,7 +398,11 @@ class MeasureScheduler:
 
     def _submit_backend(self, workload: Workload,
                         schedules: list[Schedule],
-                        priority: int) -> MeasureTicket:
+                        priority: int, batch_id: Any) -> MeasureTicket:
+        if self._owns_backend:
+            return self._backend.submit_batch(workload, schedules,
+                                              priority=priority,
+                                              batch_id=batch_id)
         if self._priority_backend:
             return self._backend.submit_batch(workload, schedules,
                                               priority=priority)
@@ -397,11 +410,12 @@ class MeasureScheduler:
 
     def submit(self, key: Any, workload: Workload,
                schedules: Sequence[Schedule],
-               priority: int = 0) -> MeasureTicket:
+               priority: int = 0, batch_id: Any = None) -> MeasureTicket:
         schedules = list(schedules)
         verdicts = self._screen(workload, schedules)
         if verdicts is None:
-            ticket = self._submit_backend(workload, list(schedules), priority)
+            ticket = self._submit_backend(workload, list(schedules), priority,
+                                          batch_id)
         else:
             # ship only the statically-defensible subset; the rejected
             # slots come back INVALID without occupying the backend at all
@@ -410,7 +424,8 @@ class MeasureScheduler:
             inner = None
             if keep:
                 inner = self._submit_backend(
-                    workload, [schedules[i] for i in keep], priority)
+                    workload, [schedules[i] for i in keep], priority,
+                    batch_id)
             ticket = _ScreenedTicket(workload, schedules, inner, keep)
         ticket.subscribe(self._any_done)
         self._fifo.append(_Entry(key, schedules, ticket, priority))

@@ -40,6 +40,7 @@ from typing import Callable, Protocol, Sequence
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core import space as space_lib
 from repro_torch.core.hardware import HardwareConfig
 from repro_torch.core.schedule import Schedule
@@ -112,23 +113,27 @@ class CardTimer:
                                   device="cuda")
 
     def __call__(self, fn: Callable, inputs) -> float:
-        """Seconds of the fastest of ``repeats`` calls of ``fn(*inputs)``."""
+        """Seconds of the fastest of ``repeats`` calls of ``fn(*inputs)``.
+        Span ``card_timer`` covers the call, its child ``card_timer.sync``
+        the host's wait for the card: the rest is the host's enqueue."""
         import torch
 
-        for _ in range(self.warmup):
-            fn(*inputs)
-        events = []
-        for _ in range(self.repeats):
-            self._flush.fill_(1)
-            torch.cuda._sleep(_SPIN_CYCLES)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn(*inputs)
-            end.record()
-            events.append((start, end))
-        torch.cuda.synchronize()
-        return min(s.elapsed_time(e) for s, e in events) / 1e3
+        with tracing.span("card_timer", cpu=True):
+            for _ in range(self.warmup):
+                fn(*inputs)
+            events = []
+            for _ in range(self.repeats):
+                self._flush.fill_(1)
+                torch.cuda._sleep(_SPIN_CYCLES)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn(*inputs)
+                end.record()
+                events.append((start, end))
+            with tracing.span("card_timer.sync"):
+                torch.cuda.synchronize()
+            return min(s.elapsed_time(e) for s, e in events) / 1e3
 
 
 @dataclasses.dataclass
@@ -182,7 +187,8 @@ class CudaRunner:
     def inputs(self, workload: Workload) -> tuple:
         key = workload.key()
         if key not in self._inputs:
-            self._inputs[key] = device_inputs(workload, "cuda")
+            with tracing.span("runner.inputs", cpu=True):
+                self._inputs[key] = device_inputs(workload, "cuda")
         return self._inputs[key]
 
     def clear_inputs(self) -> None:
@@ -202,23 +208,27 @@ class CudaRunner:
 
         # on a CUDA config, concretize already applies the kernel's own
         # launch gate (space.postproc_kernel_support)
-        params = space_lib.concretize(workload, self.hw, schedule)
+        with tracing.span("space.concretize"):
+            params = space_lib.concretize(workload, self.hw, schedule)
         if not params.valid:
             return None
         fn = kernels.build(workload, params, device="cuda")
-        try:
-            fn(*self.inputs(workload))
-        except KernelLaunchError as exc:
-            if exc.refused:
-                return None
-            raise
-        torch.cuda.synchronize()  # a fault during the run raises here
+        with tracing.span("runner.first_run", cpu=True):
+            try:
+                fn(*self.inputs(workload))
+            except KernelLaunchError as exc:
+                if exc.refused:
+                    return None
+                raise
+            torch.cuda.synchronize()  # a fault during the run raises here
         return fn
 
     def run(self, workload: Workload, schedule: Schedule) -> float:
         import torch
 
-        with torch.cuda.device(self._device), torch.cuda.stream(self._stream):
+        with tracing.span("runner.measure", cpu=True), \
+                torch.cuda.device(self._device), \
+                torch.cuda.stream(self._stream):
             fn = self._prepare(workload, schedule)
             if fn is None:
                 return INVALID
@@ -246,19 +256,22 @@ class EmulateRunner:
     def run(self, workload: Workload, schedule: Schedule) -> float:
         from repro_torch import kernels
 
-        params = space_lib.concretize(workload, self.hw, schedule)
-        if not params.valid:
-            return INVALID
-        fn = kernels.build(workload, params, device="cpu")
-        inputs = device_inputs(workload, "cpu")
-        for _ in range(self.warmup):
-            fn(*inputs)
-        best = INVALID
-        for _ in range(self.repeats):
-            t0 = time.perf_counter()
-            fn(*inputs)
-            best = min(best, time.perf_counter() - t0)
-        return best
+        with tracing.span("runner.measure", cpu=True):
+            with tracing.span("space.concretize"):
+                params = space_lib.concretize(workload, self.hw, schedule)
+            if not params.valid:
+                return INVALID
+            fn = kernels.build(workload, params, device="cpu")
+            inputs = device_inputs(workload, "cpu")
+            with tracing.span("runner.first_run", cpu=True):
+                for _ in range(self.warmup):
+                    fn(*inputs)
+            best = INVALID
+            for _ in range(self.repeats):
+                t0 = time.perf_counter()
+                fn(*inputs)
+                best = min(best, time.perf_counter() - t0)
+            return best
 
     def run_batch(self, workload: Workload,
                   schedules: Sequence[Schedule]) -> list[float]:

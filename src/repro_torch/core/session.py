@@ -69,6 +69,7 @@ import math
 import time
 from typing import Callable, Sequence
 
+from repro_torch import tracing
 from repro_torch.core import tuner
 from repro_torch.core.build_cache import build_cache_stats, stats_delta
 from repro_torch.core.database import TuningDatabase
@@ -229,6 +230,8 @@ class SessionResult:
     pipeline_depth: int = 1
     measure_time_s: float = 0.0  # summed runner time across all batches
     overlap_s: float = 0.0  # measurement time hidden behind search
+    # summed host time the drivers spent proposing and reconciling
+    search_time_s: float = 0.0
     # span-accurate measurement wall-clock: union of the real measuring
     # intervals (concurrent batches not double-counted); 0 when unknown
     measure_span_s: float = 0.0
@@ -611,12 +614,14 @@ class TuningSession:
             # path has no scheduler to adapt and no shared ledger
             results, overlap_s, span_s, extras = self._tune_serial(
                 unique, budgets, seed)
-        baselines = self._measure_baselines(unique)
+        with tracing.span("session.baselines"):
+            baselines = self._measure_baselines(unique)
         reports = [self._report_for(i, len(unique), count, wl, res, fixed)
                    for i, ((count, wl), res, fixed)
                    in enumerate(zip(unique, results, baselines))]
 
         measure_s = sum(r.measure_time_s for r in results)
+        search_s = sum(r.search_time_s for r in results)
         summary_fn = getattr(self.runner, "farm_summary", None)
         board_stats = summary_fn() if callable(summary_fn) else None
         result = SessionResult(
@@ -625,7 +630,7 @@ class TuningSession:
             wall_time_s=time.perf_counter() - t_start,
             interleaved=interleave, pipeline_depth=depth,
             measure_time_s=measure_s, overlap_s=overlap_s,
-            measure_span_s=span_s,
+            search_time_s=search_s, measure_span_s=span_s,
             multi_queue=multi_queue, model=model,
             board_stats=board_stats,
             adaptive_depth=extras.get("adaptive_depth", False),

@@ -72,6 +72,7 @@ import time
 from collections import deque
 from typing import Callable, Mapping, Sequence
 
+from repro_torch import tracing
 from repro_torch.core import space as space_lib
 from repro_torch.core.build_cache import build_cache_stats, stats_delta
 from repro_torch.core.cost_model import (RidgeCostModel, features,
@@ -100,6 +101,7 @@ class TuneResult:
     pipeline_depth: int = 1  # effective depth the search ran at
     measure_time_s: float = 0.0  # total time the runner spent measuring
     overlap_s: float = 0.0  # measurement time hidden behind search work
+    search_time_s: float = 0.0  # host time proposing and reconciling
     # per-board utilization / requeue counters when the runner is a board
     # farm (see board_farm.BoardFarm.farm_summary); None for single-target
     # runners
@@ -243,8 +245,10 @@ class TuneDriver:
         # was passed through untouched and the rng stream is bit-identical
         # to running with static_analysis=False.
         self.static_pruned = 0
-        self.static_report = (static_lib.feasibility(workload, hw)
-                              if static_analysis else None)
+        self.static_report = None
+        if static_analysis:
+            with tracing.span("static_analysis.feasibility"):
+                self.static_report = static_lib.feasibility(workload, hw)
         if self.static_report is not None:
             self.space = static_lib.pruned_program(
                 self.space, self.static_report, self._count_pruned)
@@ -288,6 +292,10 @@ class TuneDriver:
         # pipeline bookkeeping (written by the scheduler loop below)
         self.measure_time_s = 0.0  # runner time across this driver's batches
         self.wait_time_s = 0.0  # main-thread time blocked on this driver
+        self.search_time_s = 0.0  # host time in propose() and reconcile()
+        # the id the executor gives the batch it asks propose() for next,
+        # carried by the spans of its search and of its measurement
+        self.batch_id = None
         # span-accurate overlap, set by run_scheduled (None -> finish()
         # falls back to the summed-totals estimate of the sync path)
         self.overlap_span_s: float | None = None
@@ -362,9 +370,16 @@ class TuneDriver:
                 if l != INVALID]
 
     def propose(self) -> list[Schedule] | None:
+        t0 = time.perf_counter()
         if not self._started:
             self._started = True
-            self.t_start = time.perf_counter()
+            self.t_start = t0
+        try:
+            return self._propose()
+        finally:
+            self.search_time_s += time.perf_counter() - t0
+
+    def _propose(self) -> list[Schedule] | None:
         # Phase 0 — warm start from prior records (database transfer).
         if self._phase == 0:
             self._phase = 1
@@ -378,11 +393,15 @@ class TuneDriver:
             while self._submitted < target and self._tries < 50 * self.trials:
                 pending: list[Schedule] = []
                 want = min(self.batch, target - self._submitted)
-                while len(pending) < want and self._tries < 50 * self.trials:
-                    self._tries += 1
-                    s = self.sampler.sample(self.space)
-                    if space_lib.concretize(self.workload, self.hw, s).valid:
-                        pending.append(s)
+                with tracing.span("tuner.sample", cpu=True,
+                                  batch=self.batch_id):
+                    while len(pending) < want \
+                            and self._tries < 50 * self.trials:
+                        self._tries += 1
+                        s = self.sampler.sample(self.space)
+                        if space_lib.concretize(self.workload, self.hw,
+                                                s).valid:
+                            pending.append(s)
                 todo = self._take(pending)
                 if todo:
                     return todo
@@ -393,10 +412,12 @@ class TuneDriver:
                 [s for s, _ in self.history] + list(self._in_flight))
             self._population_seeded = True
         while self._submitted < self.trials:
-            self.search.evolve(self.cost_model, self._elites())
-            proposals = self.search.propose(
-                min(self.batch, self.trials - self._submitted),
-                exclude=set(self.measured) | self._in_flight_sigs)
+            with tracing.span("tuner.evolve", cpu=True,
+                              batch=self.batch_id):
+                self.search.evolve(self.cost_model, self._elites())
+                proposals = self.search.propose(
+                    min(self.batch, self.trials - self._submitted),
+                    exclude=set(self.measured) | self._in_flight_sigs)
             before = self._submitted
             todo = self._take(proposals)
             if todo:
@@ -413,13 +434,16 @@ class TuneDriver:
                   latencies: Sequence[float]) -> None:
         """Fold one measured batch back in. Batches must arrive in the order
         they were proposed (FIFO) so history replays deterministically."""
+        t0 = time.perf_counter()
         for s, latency in zip(schedules, latencies):
             head = self._in_flight.popleft()
             if head.signature() != s.signature():
                 raise RuntimeError("reconcile out of submission order")
             self._in_flight_sigs.discard(s.signature())
             self._record(s, latency)
+        tracing.count("tuner.trials", len(schedules))
         self._t_last = time.perf_counter()
+        self.search_time_s += self._t_last - t0
 
     def _record(self, s: Schedule, latency: float) -> None:
         self.measured[s.signature()] = latency
@@ -517,6 +541,7 @@ class TuneDriver:
             self.history, len(self.history), wall,
             warm_started=self.warm_started, pipeline_depth=pipeline_depth,
             measure_time_s=self.measure_time_s, overlap_s=overlap,
+            search_time_s=self.search_time_s,
             board_stats=summary() if callable(summary) else None,
             proposal_entropy=entropy, static_pruned=self.static_pruned,
             depth_trace=list(self.depth_trace),
@@ -581,6 +606,9 @@ def run_scheduled(drivers: Sequence[TuneDriver], runner: Runner,
     if scheduler is None:
         scheduler = MeasureScheduler(runner, multi_queue=multi_queue)
     counts = [0] * len(drivers)
+    # batches each driver proposed: (i, n) names batch n of driver i in the
+    # spans of its search and its measurement
+    sent = [0] * len(drivers)
     try:
         while True:
             submitted = False
@@ -599,11 +627,14 @@ def run_scheduled(drivers: Sequence[TuneDriver], runner: Runner,
                     # plus extra trailing batches.
                     on_reconcile(i, driver)
                 while counts[i] < target:
+                    driver.batch_id = (i, sent[i])
                     batch = driver.propose()
                     if batch is None:
                         break
                     scheduler.submit(i, driver.workload, batch,
-                                     priority=getattr(driver, "priority", 0))
+                                     priority=getattr(driver, "priority", 0),
+                                     batch_id=(i, sent[i]))
+                    sent[i] += 1
                     counts[i] += 1
                     submitted = True
             if scheduler.inflight():

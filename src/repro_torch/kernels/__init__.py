@@ -32,6 +32,7 @@ from __future__ import annotations
 import functools
 import math
 
+from repro_torch import tracing
 from repro_torch.core.build_cache import BuildCache, global_build_cache
 from repro_torch.core.space import KernelParams
 from repro_torch.core.workload import Workload
@@ -40,22 +41,25 @@ _BACKENDS = {"cuda": "cuda", "cpu": "plain"}
 
 
 def _build_uncached(params: KernelParams, device: str):
-    if params.op == "matmul":
-        from repro_torch.kernels.matmul import ops
-        return ops.build(params, device=device)
-    if params.op == "qmatmul":
-        from repro_torch.kernels.qmatmul import ops
-        return ops.build(params, device=device)
-    if params.op == "gemv":
-        from repro_torch.kernels.gemv import ops
-        return ops.build(params, device=device)
-    if params.op == "vmacc":
-        from repro_torch.kernels.vmacc import ops
-        return ops.build(params, device=device)
-    if params.op == "attention":
-        from repro_torch.kernels.flash_attention import ops
-        return ops.build(params, device=device)
-    raise ValueError(f"no kernel registered for op {params.op}")
+    """Build ``params`` for ``device``: a build no cache held (span
+    ``kernels.build``)."""
+    with tracing.span("kernels.build", op=params.op):
+        if params.op == "matmul":
+            from repro_torch.kernels.matmul import ops
+            return ops.build(params, device=device)
+        if params.op == "qmatmul":
+            from repro_torch.kernels.qmatmul import ops
+            return ops.build(params, device=device)
+        if params.op == "gemv":
+            from repro_torch.kernels.gemv import ops
+            return ops.build(params, device=device)
+        if params.op == "vmacc":
+            from repro_torch.kernels.vmacc import ops
+            return ops.build(params, device=device)
+        if params.op == "attention":
+            from repro_torch.kernels.flash_attention import ops
+            return ops.build(params, device=device)
+        raise ValueError(f"no kernel registered for op {params.op}")
 
 
 def build(workload: Workload, params: KernelParams, device: str = "cuda",
@@ -197,27 +201,17 @@ def _int_mm_at(x, w, shape):
     return torch._int_mm(xp, wp)[:m, :n]
 
 
+# Each CUDA kernel's name, as ``_build.check`` and the launch counters
+# (``launch.<name>`` in :mod:`repro_torch.tracing`) give it.
+KERNEL_NAMES = ("_acc_kernel", "_noacc_kernel", "_qmm_kernel", "_gemv_kernel",
+                "_gemv_noacc_kernel", "_vmacc_kernel", "_fa_kernel")
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of each CUDA kernel since the last reset."""
-    counts: dict[str, int] = {}
-    for launches in _launch_tables():
-        counts.update(launches)
-    return counts
+    counted = tracing.counters()
+    return {name: counted.get("launch." + name, 0) for name in KERNEL_NAMES}
 
 
 def reset_launch_counts() -> None:
-    for launches in _launch_tables():
-        for name in launches:
-            launches[name] = 0
-
-
-def _launch_tables() -> tuple[dict[str, int], ...]:
-    """Each kernel wrapper's launch-count table."""
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    from repro_torch.kernels.gemv import kernel as gemv_kernel
-    from repro_torch.kernels.matmul import kernel as matmul_kernel
-    from repro_torch.kernels.qmatmul import kernel as qmatmul_kernel
-    from repro_torch.kernels.vmacc import kernel as vmacc_kernel
-
-    return (matmul_kernel.launches, qmatmul_kernel.launches,
-            gemv_kernel.launches, vmacc_kernel.launches, fa_kernel.launches)
+    tracing.reset_counters("launch.")

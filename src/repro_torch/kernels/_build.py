@@ -25,6 +25,8 @@ import shutil
 import subprocess
 import threading
 
+from repro_torch import tracing
+
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", "..", "..", "build",
@@ -90,23 +92,24 @@ def build_all() -> str:
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _nvcc()
     procs = []
-    for src in todo:
-        # write to a private name, rename when done: concurrent builders
-        # (test workers) never load a half-written library
-        tmp = f"{_lib_path(out_dir, src)}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp, src]
-        procs.append((src, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    failures, log = [], []
-    for src, tmp, proc in procs:
-        output, _ = proc.communicate()
-        log.append(f"== {os.path.basename(src)} (rc {proc.returncode})\n"
-                   f"{output}")
-        if proc.returncode == 0:
-            os.replace(tmp, _lib_path(out_dir, src))
-        else:
-            failures.append(os.path.basename(src))
+    with tracing.span("kernels.compile", sources=len(todo)):
+        for src in todo:
+            # write to a private name, rename when done: concurrent builders
+            # (test workers) never load a half-written library
+            tmp = f"{_lib_path(out_dir, src)}.{os.getpid()}.tmp"
+            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp, src]
+            procs.append((src, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failures, log = [], []
+        for src, tmp, proc in procs:
+            output, _ = proc.communicate()
+            log.append(f"== {os.path.basename(src)} (rc {proc.returncode})\n"
+                       f"{output}")
+            if proc.returncode == 0:
+                os.replace(tmp, _lib_path(out_dir, src))
+            else:
+                failures.append(os.path.basename(src))
     with open(os.path.join(out_dir, "build.log"), "a") as f:
         f.write("\n".join(log))
     if failures:

@@ -2,7 +2,8 @@
 
 ``flash_attention_blocked`` is the port of ``_fa_kernel`` of the JAX
 package's ``kernels/flash_attention/kernel.py``. On a CUDA tensor it
-launches the kernel and counts the launch in :data:`launches`; on a CPU
+launches the kernel (span ``attention.launch``) and counts the launch
+(counter ``launch._fa_kernel``, :mod:`repro_torch.tracing`); on a CPU
 tensor it runs the plain version (``plain.py``), and only there.
 """
 
@@ -12,14 +13,12 @@ import ctypes
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.space import KernelParams
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import plain
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-# Launches since the last reset (kernels.reset_launch_counts).
-launches = {"_fa_kernel": 0}
 
 
 def _lib() -> ctypes.CDLL:
@@ -83,11 +82,12 @@ def flash_attention_blocked(q: torch.Tensor, k: torch.Tensor,
     bq, bkv = params.block
     out = torch.empty_like(q)
     lib = _lib()
-    code = lib.fa_launch(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b * hq, hq // hkv, pq, pkv, pd, bq, bkv, kv_len,
-        q_len, d_real, int(params.order == "qk_causal"),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, "_fa_kernel", code)
-    launches["_fa_kernel"] += 1
+    with tracing.span("attention.launch"):
+        code = lib.fa_launch(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), b * hq, hq // hkv, pq, pkv, pd, bq, bkv, kv_len,
+            q_len, d_real, int(params.order == "qk_causal"),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(lib, "_fa_kernel", code)
+    tracing.count("launch._fa_kernel")
     return out

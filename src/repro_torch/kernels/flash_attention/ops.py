@@ -11,6 +11,7 @@ import re
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.core.space import KernelParams
 from repro_torch.core.workload import dtype_bytes
 from repro_torch.kernels.matmul.ops import TORCH_DTYPES
@@ -137,8 +138,9 @@ def build(params: KernelParams, device: str = "cuda"):
     b, hq, _, lq, _, d = params.dims
 
     def f(q, k, v):
-        o = flash_attention_blocked(*pad_operands(params, q, k, v, device),
-                                    params)
-        return o[:, :lq, :d].reshape(b, hq, lq, d)
+        with tracing.span("attention.call"):
+            o = flash_attention_blocked(
+                *pad_operands(params, q, k, v, device), params)
+            return o[:, :lq, :d].reshape(b, hq, lq, d)
 
     return f

@@ -2,9 +2,10 @@
 
 ``gemv_blocked`` is the port of ``_gemv_kernel`` (``accumulate=True``) and
 ``_gemv_noacc_kernel`` (``accumulate=False``) of the JAX package's
-``kernels/gemv/kernel.py``. On a CUDA tensor it launches the kernel and
-counts the launch in :data:`launches`; on a CPU tensor it runs the plain
-version (``plain.py``), and only there. The kernels read w with 16-byte
+``kernels/gemv/kernel.py``. On a CUDA tensor it launches the kernel
+(span ``gemv.launch``) and counts the launch (counter ``launch.<kernel>``,
+:mod:`repro_torch.tracing`); on a CPU tensor it runs the plain version
+(``plain.py``), and only there. The kernels read w with 16-byte
 vector loads (each thread owns 16 bytes of neighbouring columns, and the
 block's threads split the k rows: ``csrc/gemv.cu``), so a w whose storage
 does not start on 16 bytes is copied first.
@@ -16,13 +17,11 @@ import ctypes
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 from repro_torch.kernels.gemv import plain
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-# Launches of each kernel since the last reset (kernels.reset_launch_counts).
-launches = {"_gemv_kernel": 0, "_gemv_noacc_kernel": 0}
 
 
 def _lib() -> ctypes.CDLL:
@@ -79,11 +78,12 @@ def gemv_blocked(x: torch.Tensor, w: torch.Tensor, block: tuple[int, int],
     args = (int(accumulate), _DTYPE_CODE[x.dtype], x.data_ptr(),
             w.data_ptr(), out.data_ptr(), pn, pk, bn, bk)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if max_cluster is None:
-        code = lib.gemv_launch(*args, stream)
-    else:
-        code = lib.gemv_launch_capped(*args, max_cluster, stream)
     name = "_gemv_kernel" if accumulate else "_gemv_noacc_kernel"
-    _build.check(lib, name, code)
-    launches[name] += 1
+    with tracing.span("gemv.launch"):
+        if max_cluster is None:
+            code = lib.gemv_launch(*args, stream)
+        else:
+            code = lib.gemv_launch_capped(*args, max_cluster, stream)
+        _build.check(lib, name, code)
+    tracing.count("launch." + name)
     return out

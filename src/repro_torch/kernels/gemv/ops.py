@@ -9,6 +9,7 @@ import re
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.space import KernelParams
 from repro_torch.kernels.matmul.ops import TORCH_DTYPES, pad2
 
@@ -130,10 +131,11 @@ def build(params: KernelParams, device: str = "cuda"):
     compute = TORCH_DTYPES[params.dtype]
 
     def f(x, w):
-        x = pad2(torch.as_tensor(x, device=device).to(compute), 1, pk)
-        w = pad2(torch.as_tensor(w, device=device).to(compute), pk, pn)
-        out = gemv_blocked(x.contiguous(), w.contiguous(), params.block,
-                           params.accumulate)
-        return out[:, :n]
+        with tracing.span("gemv.call"):
+            x = pad2(torch.as_tensor(x, device=device).to(compute), 1, pk)
+            w = pad2(torch.as_tensor(w, device=device).to(compute), pk, pn)
+            out = gemv_blocked(x.contiguous(), w.contiguous(), params.block,
+                               params.accumulate)
+            return out[:, :n]
 
     return f

@@ -2,10 +2,11 @@
 
 ``matmul_blocked`` is the port of ``_acc_kernel`` (``accumulate=True``) and
 ``_noacc_kernel`` (``accumulate=False``) of the JAX package's
-``kernels/matmul/kernel.py``. On a CUDA tensor it launches the kernel and
-counts the launch in :data:`launches`; on a CPU tensor it runs the plain
-version (``plain.py``), and only there. bf16 and f32 operands run on the
-tensor cores (``mma.sync`` from a ``cp.async`` ring: the
+``kernels/matmul/kernel.py``. On a CUDA tensor it launches the kernel
+(span ``matmul.launch``) and counts the launch (counter
+``launch.<kernel>``, :mod:`repro_torch.tracing`); on a CPU tensor it runs
+the plain version (``plain.py``), and only there. bf16 and f32 operands
+run on the tensor cores (``mma.sync`` from a ``cp.async`` ring: the
 ``matmul_tc_kernel`` instantiations for bf16, the 3xTF32
 ``matmul_3xtf32_kernel`` ones for f32, whose ``_acc_kernel`` may split K
 over a cluster), int8 on the CUDA cores; a block the kernel cannot launch
@@ -18,13 +19,11 @@ import ctypes
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 from repro_torch.kernels.matmul import ops, plain
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-
-# Launches of each kernel since the last reset (kernels.reset_launch_counts).
-launches = {"_acc_kernel": 0, "_noacc_kernel": 0}
 
 
 def _lib() -> ctypes.CDLL:
@@ -77,11 +76,13 @@ def matmul_blocked(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((pm, pn), dtype=plain.accumulator_dtype(x.dtype),
                       device=x.device)
     lib = _lib()
-    code = lib.matmul_launch_capped(
-        int(accumulate), _DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(),
-        out.data_ptr(), pm, pn, pk, bm, bn, bk, int(order == "nmk"),
-        max_cluster, torch.cuda.current_stream(x.device).cuda_stream)
     name = "_acc_kernel" if accumulate else "_noacc_kernel"
-    _build.check(lib, name, code)
-    launches[name] += 1
+    with tracing.span("matmul.launch"):
+        code = lib.matmul_launch_capped(
+            int(accumulate), _DTYPE_CODE[x.dtype], x.data_ptr(),
+            w.data_ptr(), out.data_ptr(), pm, pn, pk, bm, bn, bk,
+            int(order == "nmk"), max_cluster,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(lib, name, code)
+    tracing.count("launch." + name)
     return out

@@ -11,6 +11,7 @@ import re
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.core.space import KernelParams
 from repro_torch.core.workload import dtype_bytes
 
@@ -176,13 +177,14 @@ def build(params: KernelParams, device: str = "cuda"):
     compute = TORCH_DTYPES[params.dtype]
 
     def f(x, w):
-        x = pad2(torch.as_tensor(x, device=device).to(compute), pm, pk)
-        w = pad2(torch.as_tensor(w, device=device).to(compute), pk, pn)
-        out = matmul_blocked(x.contiguous(), w.contiguous(), params.block,
-                             params.order, params.accumulate)
-        out = out[:m, :n]
-        if params.out_dtype not in ("int32", "float32"):
-            out = out.to(TORCH_DTYPES[params.out_dtype])
-        return out
+        with tracing.span("matmul.call"):
+            x = pad2(torch.as_tensor(x, device=device).to(compute), pm, pk)
+            w = pad2(torch.as_tensor(w, device=device).to(compute), pk, pn)
+            out = matmul_blocked(x.contiguous(), w.contiguous(), params.block,
+                                 params.order, params.accumulate)
+            out = out[:m, :n]
+            if params.out_dtype not in ("int32", "float32"):
+                out = out.to(TORCH_DTYPES[params.out_dtype])
+            return out
 
     return f

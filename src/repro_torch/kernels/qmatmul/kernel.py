@@ -5,10 +5,12 @@ the JAX package's ``kernels/qmatmul/kernel.py``: one kernel, on the
 tensor cores, that takes the operands at their real size (``ragged``, what
 ``ops.build`` calls) or padded to the block (``blocked``, the Pallas
 kernel's contract). Like the Pallas kernel it ignores the schedule's order
-and accumulate decisions. On a CUDA tensor either launches the kernel and
-counts the launch in :data:`launches`; on a CPU tensor it runs the plain
-version (``plain.py``), and only there. A block the kernel cannot launch
-raises ``KernelLaunchError``, with no fallback to another path.
+and accumulate decisions. On a CUDA tensor either launches the kernel
+(span ``qmatmul.launch``) and counts the launch (counter
+``launch._qmm_kernel``, :mod:`repro_torch.tracing`); on a CPU tensor it
+runs the plain version (``plain.py``), and only there. A block the kernel
+cannot launch raises ``KernelLaunchError``, with no fallback to another
+path.
 """
 
 from __future__ import annotations
@@ -17,12 +19,10 @@ import ctypes
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 from repro_torch.kernels.matmul.kernel import check_operands
 from repro_torch.kernels.qmatmul import plain
-
-# Launches since the last reset (kernels.reset_launch_counts).
-launches = {"_qmm_kernel": 0}
 
 
 def _lib() -> ctypes.CDLL:
@@ -56,12 +56,13 @@ def _launch(x, w, bias, scale, block, max_cluster):
     args = (x.data_ptr(), w.data_ptr(), bias.data_ptr(), scale,
             out.data_ptr(), m, n, k, *block)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if max_cluster is None:
-        code = lib.qmatmul_launch(*args, stream)
-    else:
-        code = lib.qmatmul_launch_capped(*args, max_cluster, stream)
-    _build.check(lib, "_qmm_kernel", code)
-    launches["_qmm_kernel"] += 1
+    with tracing.span("qmatmul.launch"):
+        if max_cluster is None:
+            code = lib.qmatmul_launch(*args, stream)
+        else:
+            code = lib.qmatmul_launch_capped(*args, max_cluster, stream)
+        _build.check(lib, "_qmm_kernel", code)
+    tracing.count("launch._qmm_kernel")
     return out
 
 

@@ -12,6 +12,7 @@ import re
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.space import KernelParams
 
 DEFAULT_SCALE = 0.01
@@ -130,9 +131,11 @@ def build(params: KernelParams, device: str = "cuda",
     from repro_torch.kernels.qmatmul.kernel import qmatmul_ragged
 
     def f(x, w, bias):
-        x, w = (torch.as_tensor(t, device=device).to(torch.int8).contiguous()
-                for t in (x, w))
-        bias = torch.as_tensor(bias, device=device).to(torch.int32)
-        return qmatmul_ragged(x, w, bias.contiguous(), scale, params.block)
+        with tracing.span("qmatmul.call"):
+            x, w = (torch.as_tensor(t, device=device).to(torch.int8)
+                    .contiguous() for t in (x, w))
+            bias = torch.as_tensor(bias, device=device).to(torch.int32)
+            return qmatmul_ragged(x, w, bias.contiguous(), scale,
+                                  params.block)
 
     return f

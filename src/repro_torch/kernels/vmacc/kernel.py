@@ -4,8 +4,9 @@
 the JAX package's ``kernels/vmacc/kernel.py``: one kernel that takes the
 arrays at their real size (``ragged``, what ``ops.build`` calls) or padded
 to the block (``blocked``, the Pallas kernel's contract). On a CUDA tensor
-either launches the kernel and counts the launch in :data:`launches`; on a
-CPU tensor it runs the plain version (``plain.py``), and only there.
+either launches the kernel (span ``vmacc.launch``) and counts the launch
+(counter ``launch._vmacc_kernel``, :mod:`repro_torch.tracing`); on a CPU
+tensor it runs the plain version (``plain.py``), and only there.
 """
 
 from __future__ import annotations
@@ -14,13 +15,11 @@ import ctypes
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 from repro_torch.kernels.vmacc import plain
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-# Launches since the last reset (kernels.reset_launch_counts).
-launches = {"_vmacc_kernel": 0}
 
 
 def _lib() -> ctypes.CDLL:
@@ -65,12 +64,13 @@ def _launch(a, b, c, block):
     r, cols = a.shape
     out = torch.empty_like(a)
     lib = _lib()
-    code = lib.vmacc_launch(
-        _DTYPE_CODE[a.dtype], a.data_ptr(), b.data_ptr(), c.data_ptr(),
-        out.data_ptr(), r, cols, block[0], block[1],
-        torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(lib, "_vmacc_kernel", code)
-    launches["_vmacc_kernel"] += 1
+    with tracing.span("vmacc.launch"):
+        code = lib.vmacc_launch(
+            _DTYPE_CODE[a.dtype], a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            out.data_ptr(), r, cols, block[0], block[1],
+            torch.cuda.current_stream(a.device).cuda_stream)
+        _build.check(lib, "_vmacc_kernel", code)
+    tracing.count("launch._vmacc_kernel")
     return out
 
 

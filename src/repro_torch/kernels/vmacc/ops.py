@@ -12,6 +12,7 @@ import re
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.space import KernelParams
 from repro_torch.kernels.matmul.ops import TORCH_DTYPES
 
@@ -93,8 +94,9 @@ def build(params: KernelParams, device: str = "cuda"):
     compute = TORCH_DTYPES[params.dtype]
 
     def f(a, b, cc):
-        a, b, cc = (torch.as_tensor(t, device=device).to(compute).contiguous()
-                    for t in (a, b, cc))
-        return vmacc_ragged(a, b, cc, params.block)
+        with tracing.span("vmacc.call"):
+            a, b, cc = (torch.as_tensor(t, device=device).to(compute)
+                        .contiguous() for t in (a, b, cc))
+            return vmacc_ragged(a, b, cc, params.block)
 
     return f

@@ -87,30 +87,29 @@ def update(grads, state, params, cfg: AdamWConfig):
     parameters and moments are ``params``' and ``state``'s tensors, written
     in place. DTensor leaves work as plain ones, each gradient laid out as
     its parameter first."""
-    with torch.profiler.record_function("adamw.update"):
-        step = state["step"]
-        grads = [_laid_out_as(g, p)
-                 for g, p in zip(leaves(grads), leaves(params), strict=True)]
-        gnorm = _norm(grads)
-        clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-        b1, b2 = cfg.b1, cfg.b2
-        t = (step + 1).float()
-        bc1 = 1 - b1 ** t
-        bc2 = 1 - b2 ** t
-        lr = schedule(cfg, step)
-        # One leaf at a time, in place where the reference's order allows:
-        # each op is a pass over a leaf-sized tensor (the step is bound by
-        # memory), and the temporaries stay one leaf's.
-        for p, g, m, v in zip(leaves(params), grads,
-                              leaves(state["m"]), leaves(state["v"]),
-                              strict=True):
-            g = g * clip
-            m.mul_(b1).add_(g, alpha=1 - b1)            # b1 m + (1 - b1) g
-            v.mul_(b2).addcmul_(g, g, value=1 - b2)     # b2 v + (1 - b2) g^2
-            del g
-            upd = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
-            if cfg.weight_decay:  # + 0 * p adds nothing to a finite p
-                upd.add_(p, alpha=cfg.weight_decay)
-            p.sub_(upd.mul_(lr).to(p.dtype))             # p - lr * (...)
-        new_state = {"m": state["m"], "v": state["v"], "step": step + 1}
+    step = state["step"]
+    grads = [_laid_out_as(g, p)
+             for g, p in zip(leaves(grads), leaves(params), strict=True)]
+    gnorm = _norm(grads)
+    clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    b1, b2 = cfg.b1, cfg.b2
+    t = (step + 1).float()
+    bc1 = 1 - b1 ** t
+    bc2 = 1 - b2 ** t
+    lr = schedule(cfg, step)
+    # One leaf at a time, in place where the reference's order allows:
+    # each op is a pass over a leaf-sized tensor (the step is bound by
+    # memory), and the temporaries stay one leaf's.
+    for p, g, m, v in zip(leaves(params), grads,
+                          leaves(state["m"]), leaves(state["v"]),
+                          strict=True):
+        g = g * clip
+        m.mul_(b1).add_(g, alpha=1 - b1)            # b1 m + (1 - b1) g
+        v.mul_(b2).addcmul_(g, g, value=1 - b2)     # b2 v + (1 - b2) g^2
+        del g
+        upd = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
+        if cfg.weight_decay:  # + 0 * p adds nothing to a finite p
+            upd.add_(p, alpha=cfg.weight_decay)
+        p.sub_(upd.mul_(lr).to(p.dtype))             # p - lr * (...)
+    new_state = {"m": state["m"], "v": state["v"], "step": step + 1}
     return params, new_state, {"grad_norm": gnorm, "lr": lr}
