@@ -90,7 +90,8 @@ Phases (any failure exits nonzero and prints no result line):
      -sass`` of the matmul library must show HMMA, the tensor cores'
      instruction, in every bf16 kernel and HMMA.*.F32.TF32 in every f32
      kernel, that of the qmatmul library IMMA (the integer one) in every
-     kernel, those of the gemv and vmacc libraries a 128-bit global load in
+     kernel of its mma.sync loop and IGMMA in every kernel of its wgmma
+     loop, those of the gemv and vmacc libraries a 128-bit global load in
      every kernel with 16-byte vectors, and that of the attention library
      HMMA in every kernel and HMMA.1688.F32.TF32 in every f32 one;
   2. each kernel against its plain PyTorch version on the same device
@@ -111,7 +112,10 @@ Phases (any failure exits nonzero and prints no result line):
      exact at MobileNetV2's, MobileLLM-125M prefill's and W1/W2's shapes
      (QMM_SHAPES), at every block their H100 spaces offer, with K split by
      the kernel's rule and over no cluster, and on operands off the 16-byte
-     grain; the unpadded _vmacc_kernel at 1e-5 on ragged shapes, f32 and
+     grain; its wgmma loop exact at the benchmark cells' shapes
+     (WGMMA_SHAPES: ResNet18's conv1, conv2_x and conv4_x at batch 64,
+     MobileNetV2's 18816x384x64 at batch 96), a few blocks each, every
+     launch counted as a wgmma one; the unpadded _vmacc_kernel at 1e-5 on ragged shapes, f32 and
      bf16, vector and scalar paths (a view at an odd offset); _fa_kernel
      at N3's, N4's and N8's shapes (seq 64, 512 and 2048) at split and
      unsplit blocks, the ragged and no-visible-key shapes;
@@ -308,6 +312,15 @@ F32_SHAPES = ((64, 1536, 576), (100, 200, 300), (12544, 32, 27),
 QMM_SHAPES = ((12544, 32, 27), (784, 144, 24), (3136, 24, 96),
               (49, 160, 576), (1, 1000, 1280), (64, 576, 1536),
               (3136, 64, 576), (64, 32000, 576))
+# The unpadded _qmm_kernel's wgmma loop in phase 2, at the benchmark
+# cells' shapes and blocks it takes there: ResNet18 at batch 64 (conv1, K
+# 147: x by bulk copies; conv2_x; conv4_x at 128-row blocks) and
+# MobileNetV2 at batch 96 (18816 x 384 x 64).
+WGMMA_SHAPES = (((802816, 64, 147), ((64, 64, 64), (64, 32, 32))),
+                ((200704, 64, 576), ((64, 64, 64), (128, 32, 64))),
+                ((50176, 128, 1152), ((128, 128, 128), (64, 64, 128))),
+                ((18816, 384, 64), ((64, 64, 64), (64, 96, 32),
+                                    (128, 128, 64))))
 REPLACES = {
     "_acc_kernel": "src/repro/kernels/matmul/kernel.py:25",
     "_noacc_kernel": "src/repro/kernels/matmul/kernel.py:42",
@@ -1990,17 +2003,20 @@ def main() -> int:
     sass = {qmm_ops.kernel_label(name): body
             for name, body in _build.sass("qmatmul").items()
             if qmm_ops.kernel_label(name)}
-    if len(sass) != 4 or set(sass) != set(resources):
+    # four warp layouts of the mma.sync loop, four n of the wgmma loop
+    if len(sass) != 8 or set(sass) != set(resources):
         raise RuntimeError(f"qmatmul kernels in the SASS {sorted(sass)} and "
                            f"the ptxas report {sorted(resources)} differ")
     for label, body in sorted(sass.items()):
         n_imma = len(qmm_ops.IMMA.findall(body))
+        n_igmma = len(qmm_ops.IGMMA.findall(body))
         res = resources[label]
         print(f"  {label}: {res['registers']} registers, spill stores/loads "
-              f"{res['spills'][0]}/{res['spills'][1]} bytes, {n_imma} IMMA "
-              f"instructions")
-        if n_imma == 0:
-            raise RuntimeError(f"{label} has no IMMA: not on the tensor cores")
+              f"{res['spills'][0]}/{res['spills'][1]} bytes, {n_imma} IMMA, "
+              f"{n_igmma} IGMMA instructions")
+        fault = qmm_ops.census_fault(label, body)
+        if fault:
+            raise RuntimeError(fault)
     print("vmacc kernels (vmacc.cu), ptxas and SASS:")
     resources = ptxas_resources(_build.build_log(), vmacc_ops.kernel_label)
     sass = {vmacc_ops.kernel_label(name): body
@@ -2345,6 +2361,20 @@ def main() -> int:
                          f"offsets {offsets}", offsets)
     check_qmm_ragged((12544, 32, 27), [(32, 32, 32)], "offsets (2, 2)",
                      (2, 2))
+    for dims, blocks in WGMMA_SHAPES:
+        paths = {qmm_ops.plan(*dims, *b).path for b in blocks}
+        if paths != {"wgmma"}:
+            raise RuntimeError(f"_qmm_kernel {dims} {blocks}: the rule "
+                               f"gives {paths}, not the wgmma loop")
+        kernels.reset_launch_counts()
+        check_qmm_ragged(dims, blocks, "wgmma loop")
+        counts = kernels.launch_counts()
+        if counts["_qmm_kernel.wgmma"] != counts["_qmm_kernel"] \
+                or counts["_qmm_kernel"] != 2 * len(blocks):
+            raise RuntimeError(f"_qmm_kernel {dims}: launches "
+                               f"{counts['_qmm_kernel']}, of them wgmma "
+                               f"{counts['_qmm_kernel.wgmma']}, for "
+                               f"{2 * len(blocks)} wgmma launches")
 
     def check_vmacc_ragged(shape, blocks, dtype, offset):
         """The unpadded _vmacc_kernel at each block on arrays ``offset``

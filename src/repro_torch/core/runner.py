@@ -160,7 +160,12 @@ class CudaRunner:
     thread. The stream does not isolate the timing: kernels the server
     issues meanwhile share the card's SMs, L2 and HBM and can run inside a
     timed window, and ``CardTimer``'s synchronize waits for the whole card.
-    Latencies measured while a server decodes are measured under load."""
+    Latencies measured while a server decodes are measured under load.
+
+    Candidates whose launches run the same kernel on the same layout
+    (``kernels.launch_key``: qmatmul blocks that its wgmma loop takes at one
+    bn, or that differ only in order or accumulate) are timed once per
+    workload, and share that latency until ``clear_inputs``."""
 
     hw: HardwareConfig
     repeats: int = 10
@@ -183,6 +188,7 @@ class CudaRunner:
         self._device = torch.cuda.current_device()
         self._stream = torch.cuda.Stream(self._device)
         self._inputs: dict[str, tuple] = {}
+        self._timed: dict[tuple, float] = {}  # by (workload, launch key)
 
     def inputs(self, workload: Workload) -> tuple:
         key = workload.key()
@@ -194,24 +200,20 @@ class CudaRunner:
     def clear_inputs(self) -> None:
         """Drop the operands kept on the card for every workload measured
         so far (a large model's LM head weight alone is 0.6 GB); the next
-        measurement of a workload makes its operands anew."""
+        measurement of a workload makes its operands anew, and times its
+        launches anew."""
         self._inputs.clear()
+        self._timed.clear()
 
     def _prepare(self, workload: Workload,
-                 schedule: Schedule) -> Callable | None:
-        """Build and run one candidate once; None if it is invalid or its
-        launch is refused."""
+                 params: space_lib.KernelParams) -> Callable | None:
+        """Build and run one valid candidate once; None if its launch is
+        refused."""
         import torch
 
         from repro_torch import kernels
         from repro_torch.kernels._build import KernelLaunchError
 
-        # on a CUDA config, concretize already applies the kernel's own
-        # launch gate (space.postproc_kernel_support)
-        with tracing.span("space.concretize"):
-            params = space_lib.concretize(workload, self.hw, schedule)
-        if not params.valid:
-            return None
         fn = kernels.build(workload, params, device="cuda")
         with tracing.span("runner.first_run", cpu=True):
             try:
@@ -226,13 +228,28 @@ class CudaRunner:
     def run(self, workload: Workload, schedule: Schedule) -> float:
         import torch
 
+        from repro_torch import kernels
+
         with tracing.span("runner.measure", cpu=True), \
                 torch.cuda.device(self._device), \
                 torch.cuda.stream(self._stream):
-            fn = self._prepare(workload, schedule)
-            if fn is None:
+            # on a CUDA config, concretize already applies the kernel's own
+            # launch gate (space.postproc_kernel_support)
+            with tracing.span("space.concretize"):
+                params = space_lib.concretize(workload, self.hw, schedule)
+            if not params.valid:
                 return INVALID
-            return self._timer(fn, self.inputs(workload))
+            key = kernels.launch_key(params)
+            if key is not None:
+                key = (workload.key(), key)
+                if key in self._timed:
+                    return self._timed[key]
+            fn = self._prepare(workload, params)
+            latency = (INVALID if fn is None
+                       else self._timer(fn, self.inputs(workload)))
+            if key is not None:
+                self._timed[key] = latency
+            return latency
 
     def run_batch(self, workload: Workload,
                   schedules: Sequence[Schedule]) -> list[float]:

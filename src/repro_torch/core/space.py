@@ -916,24 +916,38 @@ def concretize(workload: Workload, hw: HardwareConfig, schedule: Schedule,
 
 def matmul_block_bytes(workload: Workload, hw: HardwareConfig, bm: int,
                        bn: int, bk: int) -> int:
-    """On-chip bytes of one (bm, bn, bk) matmul block — nondecreasing in
-    each block dimension (the static analyzer's floor relies on it).
+    """On-chip bytes of one (bm, bn, bk) matmul block.
 
     TPU configs: the x and w blocks, the output block and the f32 VMEM
     accumulator. CUDA configs: the shared memory the kernel asks for (the
-    accumulator is in registers): ``qmatmul.ops.smem_bytes`` for qmatmul,
-    ``matmul.ops.smem_bytes`` for matmul."""
+    accumulator is in registers): ``qmatmul.ops.block_smem`` for qmatmul
+    (the loop the launch takes at the workload's shape),
+    ``matmul.ops.smem_bytes`` for matmul. Nondecreasing in each block
+    dimension except qmatmul's on CUDA, whose wgmma loop sizes its ring to
+    the card: the static analyzer takes ``matmul_block_floor``."""
     if isinstance(hw, CudaHardwareConfig):
         if workload.op == "qmatmul":
             from repro_torch.kernels.qmatmul import ops as qmatmul_ops  # lazy
 
-            return qmatmul_ops.smem_bytes(bm, bn, bk)
+            return qmatmul_ops.block_smem(*workload.dims, bm, bn, bk)
         from repro_torch.kernels.matmul import ops as matmul_ops  # lazy
 
         return matmul_ops.smem_bytes(bm, bn, bk, workload.dtype)
     ib = dtype_bytes(workload.dtype)
     ob = dtype_bytes(workload.out_dtype)
     return bm * bk * ib + bk * bn * ib + bm * bn * ob + bm * bn * 4
+
+
+def matmul_block_floor(workload: Workload, hw: HardwareConfig, bm: int,
+                       bn: int, bk: int) -> int:
+    """At most ``matmul_block_bytes`` of every block at least (bm, bn, bk)
+    in each dimension: the footprint itself where it is nondecreasing, and
+    ``qmatmul.ops.smem_floor`` for qmatmul on CUDA."""
+    if isinstance(hw, CudaHardwareConfig) and workload.op == "qmatmul":
+        from repro_torch.kernels.qmatmul import ops as qmatmul_ops  # lazy
+
+        return qmatmul_ops.smem_floor(bm, bn, bk)
+    return matmul_block_bytes(workload, hw, bm, bn, bk)
 
 
 def gemv_block_bytes(workload: Workload, hw: HardwareConfig, bn: int,

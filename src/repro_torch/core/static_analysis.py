@@ -189,15 +189,17 @@ def _variant_vmem_floor(workload: Workload, hw: HardwareConfig,
     chose ``variant``, or None when no sound bound is known for this op.
 
     The tile-split candidate sets are finite divisor sets; the footprint is
-    monotone nondecreasing in every block dimension, so evaluating it at
-    each dimension's domain minimum bounds every completion from below.
+    monotone nondecreasing in every block dimension, or bounded from below
+    by a floor that is (qmatmul on CUDA), so evaluating it at each
+    dimension's domain minimum bounds every completion from below.
     Only sound for the registered ``space_for`` program shapes (matmul's
-    splits depend on the variant alone, so the bound is exact; gemv/vmacc
-    later splits condition on earlier ones, so their lower bound uses the
-    generator's hard floor — bn >= 1, bc >= lane — and stays sound). The
-    footprints are the ones ``space.concretize`` computes and the dynamic
-    ``postproc_vmem_fit`` checks (``space.matmul_block_bytes`` for
-    matmul and qmatmul, ``space.gemv_block_bytes`` for gemv,
+    splits depend on the variant alone, so the bound is exact where the
+    footprint is nondecreasing; gemv/vmacc later splits condition on
+    earlier ones, so their lower bound uses the generator's hard floor —
+    bn >= 1, bc >= lane — and stays sound). The footprints are the ones
+    ``space.concretize`` computes and the dynamic ``postproc_vmem_fit``
+    checks, or their floors (``space.matmul_block_floor`` for matmul and
+    qmatmul, ``space.gemv_block_bytes`` for gemv,
     ``space.vmacc_block_bytes`` for vmacc)."""
     op = workload.op
     lane = hw.lane_align(workload.dtype)
@@ -207,7 +209,7 @@ def _variant_vmem_floor(workload: Workload, hw: HardwareConfig,
             bm = min(program.candidates("bm", ctx))
             bn = min(program.candidates("bn", ctx))
             bk = min(program.candidates("bk", ctx))
-            return space_lib.matmul_block_bytes(workload, hw, bm, bn, bk)
+            return space_lib.matmul_block_floor(workload, hw, bm, bn, bk)
         if op == "gemv":
             bk = min(program.candidates("bk", ctx))
             # the J=1 row form (bn = 1) is the generator's hard floor

@@ -80,6 +80,18 @@ def build(workload: Workload, params: KernelParams, device: str = "cuda",
     return bc.get_or_build(key, lambda: _build_uncached(params, device))
 
 
+def launch_key(params: KernelParams):
+    """What the launch of ``params`` runs, for an op whose kernel reads less
+    than the params carry: qmatmul's (``qmatmul.ops.launch_key``: its wgmma
+    loop reads only bn of the block, and neither of its loops the order or
+    the accumulate decision). None for every other op. The measuring runner
+    times each key once."""
+    if params.op == "qmatmul":
+        from repro_torch.kernels.qmatmul import ops
+        return ops.launch_key(*params.dims, *params.block)
+    return None
+
+
 def reference(workload: Workload):
     """The plain PyTorch oracle for an op family."""
     if workload.op == "matmul":
@@ -202,9 +214,12 @@ def _int_mm_at(x, w, shape):
 
 
 # Each CUDA kernel's name, as ``_build.check`` and the launch counters
-# (``launch.<name>`` in :mod:`repro_torch.tracing`) give it.
-KERNEL_NAMES = ("_acc_kernel", "_noacc_kernel", "_qmm_kernel", "_gemv_kernel",
-                "_gemv_noacc_kernel", "_vmacc_kernel", "_fa_kernel")
+# (``launch.<name>`` in :mod:`repro_torch.tracing`) give it, and
+# ``_qmm_kernel.wgmma``: those of ``_qmm_kernel``'s launches that took its
+# wgmma loop.
+KERNEL_NAMES = ("_acc_kernel", "_noacc_kernel", "_qmm_kernel",
+                "_qmm_kernel.wgmma", "_gemv_kernel", "_gemv_noacc_kernel",
+                "_vmacc_kernel", "_fa_kernel")
 
 
 def launch_counts() -> dict[str, int]:

@@ -7,7 +7,8 @@ tensor cores, that takes the operands at their real size (``ragged``, what
 kernel's contract). Like the Pallas kernel it ignores the schedule's order
 and accumulate decisions. On a CUDA tensor either launches the kernel
 (span ``qmatmul.launch``) and counts the launch (counter
-``launch._qmm_kernel``, :mod:`repro_torch.tracing`); on a CPU tensor it
+``launch._qmm_kernel``, and ``launch._qmm_kernel.wgmma`` where the launcher
+took its wgmma loop, :mod:`repro_torch.tracing`); on a CPU tensor it
 runs the plain version (``plain.py``), and only there. A block the kernel
 cannot launch raises ``KernelLaunchError``, with no fallback to another
 path.
@@ -23,17 +24,16 @@ from repro_torch import tracing
 from repro_torch.kernels import _build
 from repro_torch.kernels.matmul.kernel import check_operands
 from repro_torch.kernels.qmatmul import plain
+from repro_torch.kernels.qmatmul.ops import MAX_CLUSTER
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.library("qmatmul")
-    if lib.qmatmul_launch.argtypes is None:
+    if lib.qmatmul_launch_capped.argtypes is None:
         i, p = ctypes.c_int, ctypes.c_void_p
-        lib.qmatmul_launch.argtypes = [p, p, p, ctypes.c_float, p, i, i, i,
-                                       i, i, i, p]
-        lib.qmatmul_launch.restype = ctypes.c_int
         lib.qmatmul_launch_capped.argtypes = [p, p, p, ctypes.c_float, p, i,
-                                              i, i, i, i, i, i, p]
+                                              i, i, i, i, i, i, p,
+                                              ctypes.POINTER(i)]
         lib.qmatmul_launch_capped.restype = ctypes.c_int
     return lib
 
@@ -56,13 +56,15 @@ def _launch(x, w, bias, scale, block, max_cluster):
     args = (x.data_ptr(), w.data_ptr(), bias.data_ptr(), scale,
             out.data_ptr(), m, n, k, *block)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    wgmma = ctypes.c_int()
     with tracing.span("qmatmul.launch"):
-        if max_cluster is None:
-            code = lib.qmatmul_launch(*args, stream)
-        else:
-            code = lib.qmatmul_launch_capped(*args, max_cluster, stream)
+        cap = MAX_CLUSTER if max_cluster is None else max_cluster
+        code = lib.qmatmul_launch_capped(*args, cap, stream,
+                                         ctypes.byref(wgmma))
         _build.check(lib, "_qmm_kernel", code)
     tracing.count("launch._qmm_kernel")
+    if wgmma.value:
+        tracing.count("launch._qmm_kernel.wgmma")
     return out
 
 

@@ -1,6 +1,6 @@
 """Public wrapper of the quantized matmul kernel, plus its block-shape gate,
-its shared-memory footprint and the Python mirror of the launcher's layout
-rules (``csrc/qmatmul.cu``: ``make_plan``).
+its shared-memory footprints and the Python mirror of the launcher's layout
+rules (``csrc/qmatmul.cu``: ``make_plan``, ``make_wg_plan``).
 
 The kernel takes the operands at their real size and masks the tail tile
 itself, so ``build`` pads nothing: one launch per call."""
@@ -32,15 +32,125 @@ FILL_CTAS = 132
 MIN_STEPS = 2
 MIN_WARPS = 4
 FRAG_M, FRAG_N, FRAG_K = 16, 32, 32
+# The wgmma loop: blocks of WG_THREADS threads, two consumer warpgroups
+# taking alternate units of WG_UNIT rows (two halves of WG_ROWS) and a
+# producer warpgroup, bn up to WG_MAX_N (both halves' sums in a thread's
+# registers); a ring of WG_MIN_STAGES to WG_MAX_STAGES slots, as many as fit
+# beside the resident w and even (each warpgroup owns every other slot);
+# panels aligned to ALIGN bytes; SMEM_LIMIT the bytes a block may opt into.
+WG_ROWS = 64
+WG_UNIT = 128
+WG_MAX_N = 128
+WG_MIN_STAGES = 4
+WG_MAX_STAGES = 32
+WG_THREADS = 384
+ALIGN = 1024
+SMEM_LIMIT = 232448
+
+
+@dataclasses.dataclass(frozen=True)
+class WgPlan:
+    """The wgmma loop's layout ``make_wg_plan`` computes (sizes in bytes)."""
+    bulk: bool      # x by 1D bulk copies of whole units (K % 16 != 0)
+    panel: int      # P: bytes of k a ring slot holds (32, 64 or 128)
+    kp: int         # K padded to whole panels
+    units_m: int    # units of WG_UNIT rows
+    stages: int     # ring slots
+    blocks: int     # persistent blocks
+    w_vec: bool     # w read 4 bytes at a time
+    x_slot: int     # one ring slot
+    smem: int       # dynamic shared memory of one block
+
+
+def wgmma_fixed_bytes(bn: int) -> int:
+    """The wgmma loop's shared memory besides its ring, w and re-laid rows
+    (``wg_fixed``): the alignment slack, the bias slice, the barriers."""
+    return ALIGN + 4 * bn + 2 * WG_MAX_STAGES * 8
+
+
+def wgmma_plan(m: int, n: int, k: int, bm: int, bn: int,
+               x_address: int = 0, w_address: int = 0) -> WgPlan | None:
+    """The wgmma loop's layout for real ``(m, n, k)`` at a block of ``bm``
+    rows and ``bn`` columns, or None where the call keeps the mma.sync loop:
+    the rules of ``csrc/qmatmul.cu``'s ``make_wg_plan``, step for step. It
+    takes blocks of one or two warpgroups of rows, ``bn`` up to 128, x on
+    the 16-byte grain, at least ``FILL_CTAS`` units of ``WG_UNIT`` rows in at
+    most ``FILL_CTAS`` columns of tiles, and ``WG_MIN_STAGES`` ring slots
+    beside the block's (kp, bn) slice of w. Its staging (units of 128 rows,
+    panels of 32, 64 or 128 bytes of k) follows K, not the block's bm or
+    bk; the ring takes what is left of ``SMEM_LIMIT``. Where K is not a
+    multiple of 16 (``bulk``) a slot is a whole unit, re-laid by its
+    consumer warpgroup into panels of K padded to 32."""
+    units_m, tiles_n = -(-m // WG_UNIT), -(-n // bn)
+    if (bm % WG_ROWS or bm > WG_UNIT or bn > WG_MAX_N
+            or units_m * tiles_n < FILL_CTAS or tiles_n > FILL_CTAS
+            or x_address % 16):
+        return None
+    bulk = k % 16 != 0
+    if bulk:   # re-laid whole: K to 32 bytes, in the widest panels that fit
+        kp = -(-k // 32) * 32
+        panel = 128 if kp % 128 == 0 else 64 if kp % 64 == 0 else 32
+    else:      # a ring slot a panel
+        panel = 32 if k <= 32 else 64 if k <= 64 else 128
+        kp = -(-k // panel) * panel
+    x_slot = (-(-(WG_UNIT * k + 32) // ALIGN) * ALIGN if bulk
+              else WG_UNIT * panel)
+    fixed = (wgmma_fixed_bytes(bn) + kp * bn
+             + (2 * WG_UNIT * kp if bulk else 0))
+    stages = (SMEM_LIMIT - fixed) // x_slot
+    if stages < WG_MIN_STAGES:
+        return None
+    stages = min(stages, WG_MAX_STAGES) & ~1
+    return WgPlan(bulk=bulk, panel=panel, kp=kp, units_m=units_m,
+                  stages=stages, blocks=FILL_CTAS // tiles_n * tiles_n,
+                  w_vec=n % 4 == 0 and w_address % 4 == 0, x_slot=x_slot,
+                  smem=fixed + stages * x_slot)
 
 
 def smem_bytes(bm: int, bn: int, bk: int) -> int:
-    """Dynamic shared memory of one block (``qmm_smem_bytes``): the ring of
-    x (bm, bk) and w (bk, bn) tiles, or the int32 partial tile a cluster
-    reduces, whichever is larger. Nondecreasing in each block dim (the
-    static analyzer's floor relies on it)."""
+    """Dynamic shared memory of one block of the mma.sync loop
+    (``qmm_smem_bytes``): the ring of x (bm, bk) and w (bk, bn) tiles, or
+    the int32 partial tile a cluster reduces, whichever is larger. What the
+    gate holds a block to (every block it accepts can take this loop: x
+    off the 16-byte grain keeps it). Nondecreasing in each block dim."""
     ring = STAGES * (bm * (bk + ROW_PAD) + bk * (bn + ROW_PAD))
     return max(ring, bm * bn * 4)
+
+
+def block_smem(m: int, n: int, k: int, bm: int, bn: int, bk: int) -> int:
+    """Dynamic shared memory of the launch at real ``(m, n, k)`` and block
+    ``(bm, bn, bk)``, x on the 16-byte grain: the wgmma loop's
+    (``wgmma_plan(...).smem``, its ring sized to the card) where it takes
+    the call, else the mma.sync loop's (``smem_bytes``). The footprint
+    ``concretize`` charges. Not monotone in the block (the wgmma loop's
+    ring fills what w leaves): the static analyzer bounds it from below
+    with ``smem_floor``."""
+    g = wgmma_plan(m, n, k, bm, bn)
+    return smem_bytes(bm, bn, bk) if g is None else g.smem
+
+
+def smem_floor(bm: int, bn: int, bk: int) -> int:
+    """At most ``block_smem`` of every block at least ``(bm, bn, bk)`` in
+    each dim, at any shape: the least of the mma.sync loop's footprint
+    (nondecreasing) and the least the wgmma loop ever asks (its fixed bytes
+    at bn 32, a (32, 32) slice of w, WG_MIN_STAGES slots of WG_UNIT rows x
+    32 bytes). The static analyzer's floor."""
+    least_wgmma = (wgmma_fixed_bytes(FRAG_N) + FRAG_K * FRAG_N
+                   + WG_MIN_STAGES * WG_UNIT * FRAG_K)
+    return min(smem_bytes(bm, bn, bk), least_wgmma)
+
+
+def launch_key(m: int, n: int, k: int, bm: int, bn: int,
+               bk: int) -> tuple:
+    """What a launch at real ``(m, n, k)`` and block ``(bm, bn, bk)`` runs,
+    x on the 16-byte grain: ``("wgmma", bn)`` where it takes the wgmma
+    loop, which reads only bn of the block (its units and panels follow the
+    shape), else ``("mma", bm, bn, bk)``. Blocks with one key launch the
+    same kernel on the same layout (the schedule's order and accumulate
+    reach neither loop), so the measuring runner times each key once."""
+    if wgmma_plan(m, n, k, bm, bn) is not None:
+        return "wgmma", bn
+    return "mma", bm, bn, bk
 
 
 def supports_block_shape(bm: int, bn: int, bk: int, smem_limit: int) -> bool:
@@ -74,7 +184,8 @@ def copy_width(row_bytes: int, address: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """The launch-time layout ``make_plan`` in ``csrc/qmatmul.cu``
-    computes."""
+    computes, and the loop the launch takes (``wgmma``: its layout, or None
+    for the mma.sync loop, whose fields the rest are)."""
     wm: int        # fragments per warp, down the rows
     wn: int        # fragments per warp, across the columns
     warps: int
@@ -84,14 +195,20 @@ class Plan:
     cluster: int   # blocks that split one tile's k steps
     vx: int        # copy width of x's rows
     vw: int        # copy width of w's rows
+    wgmma: WgPlan | None = None
+
+    @property
+    def path(self) -> str:
+        return "mma" if self.wgmma is None else "wgmma"
 
 
 def plan(m: int, n: int, k: int, bm: int, bn: int, bk: int,
          x_address: int = 0, w_address: int = 0,
          max_cluster: int = MAX_CLUSTER) -> Plan:
     """The kernel's layout for real ``(m, n, k)`` at block ``(bm, bn, bk)``:
-    the rules of ``csrc/qmatmul.cu``'s ``make_plan``, step for step
-    (``max_cluster`` as ``qmatmul_launch_capped`` takes it)."""
+    the rules of ``csrc/qmatmul.cu``'s ``make_plan`` and ``make_wg_plan``,
+    step for step (``max_cluster`` as ``qmatmul_launch_capped`` takes it;
+    it does not move the choice of loop)."""
     fm, fn = bm // FRAG_M, bn // FRAG_N
     wm = 2 if fm % 2 == 0 and (fm // 2) * fn >= MIN_WARPS else 1
     wn = 2 if fn % 2 == 0 and (fm // wm) * (fn // 2) >= MIN_WARPS else 1
@@ -102,7 +219,8 @@ def plan(m: int, n: int, k: int, bm: int, bn: int, bk: int,
         c *= 2
     return Plan(wm=wm, wn=wn, warps=(fm // wm) * (fn // wn),
                 tiles_m=tiles_m, tiles_n=tiles_n, steps=steps, cluster=c,
-                vx=copy_width(k, x_address), vw=copy_width(n, w_address))
+                vx=copy_width(k, x_address), vw=copy_width(n, w_address),
+                wgmma=wgmma_plan(m, n, k, bm, bn, x_address, w_address))
 
 
 def k_steps(steps: int, cluster: int, rank: int) -> range:
@@ -111,15 +229,32 @@ def k_steps(steps: int, cluster: int, rank: int) -> range:
 
 
 _MANGLED = re.compile(r"qmm_kernelILi(\d+)ELi(\d+)E")
-# An integer tensor-core instruction in SASS (IMMA.16832.S8.S8, ...).
+_MANGLED_WGMMA = re.compile(r"5wgmma10qmm_kernelILi(\d+)EE")
+# Integer tensor-core instructions in SASS: IMMA (IMMA.16832.S8.S8, mma.sync)
+# and IGMMA (IGMMA.64x64x32.S8.S8, wgmma).
 IMMA = re.compile(r"\bIMMA\b")
+IGMMA = re.compile(r"\bIGMMA\b")
 
 
 def kernel_label(mangled: str) -> str | None:
-    """``qmm_kernel<WM,WN>`` for the mangled name of one of
-    ``csrc/qmatmul.cu``'s kernels, else None."""
+    """``qmm_kernel<WM,WN>`` (the mma.sync loop) or ``wgmma::qmm_kernel<BN>``
+    (the wgmma loop) for the mangled name of one of ``csrc/qmatmul.cu``'s
+    kernels, else None."""
+    m = _MANGLED_WGMMA.search(mangled)
+    if m is not None:
+        return f"wgmma::qmm_kernel<{m[1]}>"
     m = _MANGLED.search(mangled)
     return None if m is None else f"qmm_kernel<{m[1]},{m[2]}>"
+
+
+def census_fault(label: str, sass: str) -> str | None:
+    """Why the SASS of the kernel ``kernel_label`` names shows it off the
+    tensor cores, or None: the wgmma loop's kernels must issue IGMMA, the
+    mma.sync loop's IMMA."""
+    want = IGMMA if label.startswith("wgmma::") else IMMA
+    if want.search(sass):
+        return None
+    return f"{label} has no {want.pattern[2:-2]}: not on the tensor cores"
 
 
 def build(params: KernelParams, device: str = "cuda",

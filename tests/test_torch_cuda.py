@@ -353,6 +353,31 @@ def test_cuda_runner_clear_inputs_frees_the_operands(cuda):
     assert all(torch.equal(a, b) for a, b in zip(again, copies))
 
 
+def test_cuda_runner_times_each_launch_once(cuda):
+    """qmatmul blocks that the wgmma loop takes at one bn launch one kernel
+    (``kernels.launch_key``): the runner times the first and hands its
+    latency to the rest, and times a block of another key anew, until
+    ``clear_inputs``."""
+    wl = W.qmatmul(16896, 64, 576)          # 132 units of 128 rows
+    runner = CudaRunner(H100, repeats=1)
+    timed = []
+    timer = runner._timer
+    runner._timer = lambda fn, inputs: timed.append(1) or timer(fn, inputs)
+    a, b, c = (Schedule.fixed(variant="mxu_64", bm=bm, bn=64, bk=bk,
+                              order=order, accumulate=True)
+               for bm, bk, order in ((64, 32, "mnk"), (128, 128, "nmk"),
+                                     (32, 64, "mnk")))
+    assert [qmatmul_ops.plan(*wl.dims, *concretize(wl, H100, s).block).path
+            for s in (a, b, c)] == ["wgmma", "wgmma", "mma"]
+    first = runner.run(wl, a)
+    assert runner.run(wl, b) == first and len(timed) == 1
+    runner.run(wl, c)
+    assert len(timed) == 2
+    runner.clear_inputs()
+    runner.run(wl, b)
+    assert len(timed) == 3
+
+
 # ------------------------------------------------------- gemv and vmacc ----
 
 def _vector_operands(n, k, dtype, device, seed=0):
@@ -968,15 +993,88 @@ def test_qmatmul_gate_matches_kernel_limits(cuda, limit, inside):
 
 
 def test_qmatmul_kernels_run_on_tensor_cores(cuda):
-    """Every kernel of csrc/qmatmul.cu (each warp layout) issues IMMA, the
-    integer tensor-core instruction, in the built SASS."""
+    """Every kernel of csrc/qmatmul.cu issues an integer tensor-core
+    instruction in the built SASS: IMMA in each warp layout of the mma.sync
+    loop, IGMMA in each n of the wgmma loop."""
     functions = {qmatmul_ops.kernel_label(name): body
                  for name, body in _build.sass("qmatmul").items()
                  if qmatmul_ops.kernel_label(name)}
-    assert sorted(functions) == ["qmm_kernel<1,1>", "qmm_kernel<1,2>",
-                                 "qmm_kernel<2,1>", "qmm_kernel<2,2>"]
+    assert sorted(functions) == sorted(
+        ["qmm_kernel<1,1>", "qmm_kernel<1,2>", "qmm_kernel<2,1>",
+         "qmm_kernel<2,2>"]
+        + [f"wgmma::qmm_kernel<{n}>" for n in range(32, 129, 32)])
     for label, body in functions.items():
-        assert qmatmul_ops.IMMA.search(body), label
+        assert qmatmul_ops.census_fault(label, body) is None, label
+
+
+# The wgmma loop at the cells' shapes: ResNet18's conv1 (K 147: x by bulk
+# copies, re-laid), conv2_x, conv3_x and conv5_x (at bn 32, its w slice
+# resident); MobileNetV2's K 27 / N 32, K 16 / N 96 and K 24 / N 144; and
+# tails: a ragged M with N 1000, a bulk K of 100 at 128 rows, bn 128 and
+# 96 over an N tail, an odd number of units a block.
+WGMMA_CASES = [
+    ((802816, 64, 147), (64, 64, 64)),
+    ((200704, 64, 576), (64, 64, 64)),
+    ((50176, 128, 1152), (128, 128, 128)),
+    ((3136, 512, 4608), (64, 32, 64)),
+    ((1204224, 32, 27), (64, 32, 32)),
+    ((1204224, 96, 16), (64, 96, 32)),
+    ((301056, 144, 24), (64, 64, 32)),
+    ((8513, 1000, 64), (64, 32, 64)),
+    ((9000, 200, 100), (128, 64, 32)),
+    ((20000, 256, 320), (64, 128, 64)),
+    ((20000, 800, 320), (64, 96, 96)),
+    ((16896 + 128, 64, 64), (64, 64, 64)),
+]
+
+
+@pytest.mark.parametrize("dims,block", WGMMA_CASES, ids=str)
+def test_qmatmul_wgmma_loop_is_exact(cuda, dims, block):
+    """Each shape takes the wgmma loop (the launcher says so, the counter
+    moves) and is bit-exact against the plain version; with x at an 8-byte
+    but not 16-byte address the same call keeps the mma.sync loop, exact
+    too, and the counter stays."""
+    x, w, bias = _qmm_operands(*dims, cuda)
+    assert qmatmul_ops.plan(*dims, *block, x.data_ptr(),
+                            w.data_ptr()).path == "wgmma"
+    want = qmatmul_plain.qmatmul_plain(x, w, bias, 0.01, block[2])
+    kernels.reset_launch_counts()
+    got = qmatmul_ragged(x, w, bias, 0.01, block)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    counts = kernels.launch_counts()
+    assert counts["_qmm_kernel"] == counts["_qmm_kernel.wgmma"] == 1
+    x8 = _at_offset(x, 8)
+    assert x8.data_ptr() % 16 == 8
+    assert qmatmul_ops.plan(*dims, *block, x8.data_ptr(),
+                            w.data_ptr()).path == "mma"
+    got = qmatmul_ragged(x8, w, bias, 0.01, block)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    counts = kernels.launch_counts()
+    assert (counts["_qmm_kernel"], counts["_qmm_kernel.wgmma"]) == (2, 1)
+
+
+@pytest.mark.parametrize("dims,block", [
+    ((3136, 64, 576), (64, 64, 64)),      # W1: 49 tiles
+    ((64, 32000, 576), (64, 64, 64)),     # W2: 500 columns of tiles
+    ((64, 576, 1536), (64, 64, 64)),      # N4's projection
+    ((96, 1000, 1280), (64, 64, 64)),     # MobileNetV2's classifier
+    ((200704, 64, 576), (32, 64, 64)),    # 32-row blocks
+    ((20000, 256, 320), (64, 256, 64)),   # bn past 128
+], ids=["w1", "w2", "n4", "classifier", "bm32", "bn256"])
+def test_qmatmul_wgmma_counter_stays_off_the_rule(cuda, dims, block):
+    """Where the rule keeps the mma.sync loop the launch is counted once,
+    never as a wgmma one."""
+    x, w, bias = _qmm_operands(*dims, cuda)
+    assert qmatmul_ops.plan(*dims, *block).path == "mma"
+    kernels.reset_launch_counts()
+    got = qmatmul_ragged(x, w, bias, 0.01, block)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qmatmul_plain.qmatmul_plain(x, w, bias, 0.01,
+                                                        block[2]))
+    counts = kernels.launch_counts()
+    assert (counts["_qmm_kernel"], counts["_qmm_kernel.wgmma"]) == (1, 0)
 
 
 @pytest.mark.parametrize("shape,block", [

@@ -14,11 +14,17 @@ card; what surrounds them is Python that these tests reach:
   Python mirror of each launcher's ``make_plan``) covers every k step and
   every tile exactly once;
 - the mirrors' constants against the ones ``qmatmul.cu`` and ``vmacc.cu``
-  state, read from the sources, and the rules at the main paths' shapes;
+  state, read from the sources, and the rules at the main paths' shapes:
+  which of qmatmul's two loops (mma.sync, or the warp-specialised wgmma
+  loop) a call takes at the benchmark cells' 30 distinct shapes, at the
+  batch-1 and prefill shapes and on each side of every limit of the rule;
 - the footprints ``concretize`` charges: on ``V5E`` the JAX package's,
-  value for value; on ``H100`` the kernels' shared memory, nondecreasing in
-  each block dim, with every trace of MobileNetV2 int8's and MobileLLM-125M
-  int8 prefill's spaces launchable.
+  value for value; on ``H100`` the shared memory of the loop the launch
+  takes, with every trace of MobileNetV2 int8's and MobileLLM-125M int8
+  prefill's spaces launchable; the mma.sync loop's nondecreasing in each
+  block dim, the wgmma loop's bounded from below by the static analyzer's
+  floor; and the launches that run one kernel, which the measuring runner
+  times once.
 
 The kernels themselves run only on a card: tests/test_torch_cuda.py.
 """
@@ -49,6 +55,7 @@ from repro.core import workload as ref_W  # noqa: E402
 
 from repro_torch import kernels, nets  # noqa: E402
 from repro_torch.core import H100, V5E, Schedule, concretize, space_for  # noqa: E402
+from repro_torch.core import fixed_library_schedule  # noqa: E402
 from repro_torch.core import space  # noqa: E402
 from repro_torch.core import workload as W  # noqa: E402
 from repro_torch.kernels.qmatmul import ops as qmm_ops  # noqa: E402
@@ -232,6 +239,21 @@ def test_qmatmul_mirror_constants_match_the_source():
     assert (c["FRAG_M"], c["FRAG_N"], c["FRAG_K"]) == (
         qmm_ops.FRAG_M, qmm_ops.FRAG_N, qmm_ops.FRAG_K)
     assert c["QMM_FILL_CTAS"] == H100.sm_count
+    assert (c["QMM_WG_ROWS"], c["QMM_WG_UNIT"], c["QMM_WG_MAX_N"],
+            c["QMM_WG_MIN_STAGES"], c["QMM_WG_MAX_STAGES"],
+            c["QMM_WG_THREADS"], c["QMM_ALIGN"], c["QMM_SMEM_LIMIT"]) == (
+        qmm_ops.WG_ROWS, qmm_ops.WG_UNIT, qmm_ops.WG_MAX_N,
+        qmm_ops.WG_MIN_STAGES, qmm_ops.WG_MAX_STAGES, qmm_ops.WG_THREADS,
+        qmm_ops.ALIGN, qmm_ops.SMEM_LIMIT)
+    # two consumer warpgroups and a producer one, whose registers fit a
+    # sub-partition's 16384 after setmaxnreg: two consumer warps, one
+    # producer warp
+    assert c["QMM_WG_UNIT"] == 2 * c["QMM_WG_ROWS"]
+    assert c["QMM_WG_THREADS"] == 3 * 128
+    assert (2 * c["QMM_WG_CONSUMER_REGS"] + c["QMM_WG_PRODUCER_REGS"]) * 32 \
+        <= 16384
+    assert c["QMM_SMEM_LIMIT"] == H100.vmem_capacity
+    assert c["QMM_WG_ROWS"] == H100.mxu_dim
 
 
 def test_vmacc_mirror_constants_match_the_source():
@@ -250,8 +272,12 @@ def test_vmacc_mirror_constants_match_the_source():
     ((12544, 32, 27), (16, 32, 32), 1),    # one k step
 ])
 def test_qmatmul_split_rule_at_the_main_paths_shapes(dims, block, cluster):
+    """The batch-1 and prefill shapes keep the mma.sync loop and its split:
+    their grids do not fill the card (W2's 500 tiles lie in 500 columns, more
+    than a persistent grid holds)."""
     assert qmm_ops.plan(*dims, *block).cluster == cluster
     assert qmm_ops.plan(*dims, *block, max_cluster=1).cluster == 1
+    assert qmm_ops.plan(*dims, *block).path == "mma"
 
 
 @pytest.mark.parametrize("block,layout", [
@@ -262,6 +288,251 @@ def test_qmatmul_split_rule_at_the_main_paths_shapes(dims, block, cluster):
 def test_qmatmul_warp_layout(block, layout):
     p = qmm_ops.plan(64, 64, 64, *block)
     assert (p.wm, p.wn, p.warps) == layout
+    assert p.path == "mma" and p.wgmma is None      # one tile
+
+
+# The benchmark cells' distinct qmatmul shapes (ResNet18 at batch 64, 9;
+# MobileNetV2 at batch 96, 21), each at its space's largest block: the loop
+# it takes, and for the wgmma loop whether x comes by bulk copies (K not a
+# multiple of 16).
+CELL_SHAPES = [
+    ((802816, 64, 147), (64, 64, 64), "wgmma", True),
+    ((200704, 64, 576), (64, 64, 64), "wgmma", False),
+    ((50176, 128, 576), (128, 128, 128), "wgmma", False),
+    ((50176, 128, 1152), (128, 128, 128), "wgmma", False),
+    ((12544, 256, 1152), (128, 128, 128), "wgmma", False),
+    ((12544, 256, 2304), (128, 128, 128), "mma", None),    # w 295 KB
+    ((3136, 512, 2304), (128, 128, 128), "mma", None),     # 100 units
+    ((3136, 512, 4608), (128, 128, 128), "mma", None),
+    ((64, 1000, 512), (64, 64, 64), "mma", None),          # the fc
+    ((1204224, 32, 27), (32, 32, 32), "mma", None),        # 32-row blocks
+    ((1204224, 16, 32), (32, 32, 32), "mma", None),
+    ((1204224, 96, 16), (32, 32, 32), "mma", None),
+    ((301056, 24, 96), (32, 32, 32), "mma", None),
+    ((301056, 144, 24), (32, 32, 32), "mma", None),
+    ((301056, 24, 144), (32, 32, 32), "mma", None),
+    ((75264, 32, 144), (32, 32, 32), "mma", None),
+    ((75264, 192, 32), (32, 32, 32), "mma", None),
+    ((75264, 32, 192), (32, 32, 32), "mma", None),
+    ((18816, 64, 192), (64, 64, 64), "wgmma", False),
+    ((18816, 384, 64), (64, 64, 64), "wgmma", False),
+    ((18816, 64, 384), (64, 64, 64), "wgmma", False),
+    ((18816, 96, 384), (64, 64, 64), "wgmma", False),
+    ((18816, 576, 96), (64, 64, 64), "wgmma", False),
+    ((18816, 96, 576), (64, 64, 64), "wgmma", False),
+    ((4704, 160, 576), (128, 128, 128), "mma", None),      # 74 units
+    ((4704, 960, 160), (128, 128, 128), "wgmma", False),
+    ((4704, 160, 960), (128, 128, 128), "mma", None),
+    ((4704, 320, 960), (128, 128, 128), "mma", None),      # 111 units
+    ((4704, 1280, 320), (128, 128, 128), "wgmma", False),
+    ((96, 1000, 1280), (64, 64, 64), "mma", None),         # the classifier
+]
+
+
+def _largest_block(dims):
+    wl = W.qmatmul(*dims)
+    program = space_for(wl, H100)
+    ctx = {"variant": program.candidates("variant")[0]}
+    return tuple(max(program.candidates(d, ctx)) for d in ("bm", "bn", "bk"))
+
+
+@pytest.mark.parametrize("dims,block,path,bulk", CELL_SHAPES,
+                         ids=[str(c[0]) for c in CELL_SHAPES])
+def test_qmatmul_loop_at_the_cells_shapes(dims, block, path, bulk):
+    """The loop each cell shape takes at its space's largest block, and at
+    every block of its space: the wgmma loop only where the block is one or
+    two warpgroups of rows and the units fill the card, never for a block
+    of 16 to 48 rows; the wgmma loop's persistent grid and shared memory
+    within the card's."""
+    assert _largest_block(dims) == block
+    p = qmm_ops.plan(*dims, *block)
+    assert p.path == path
+    if bulk is not None:
+        assert p.wgmma.bulk is bulk
+    for b in _blocks(W.qmatmul(*dims)):
+        q = qmm_ops.plan(*dims, *b)
+        if b[0] not in (64, 128):
+            assert q.path == "mma", b
+        if q.path == "wgmma":
+            g = q.wgmma
+            assert g.units_m * q.tiles_n >= qmm_ops.FILL_CTAS >= q.tiles_n
+            assert q.cluster == 1
+            assert g.smem <= qmm_ops.SMEM_LIMIT
+            assert g.blocks % q.tiles_n == 0
+            assert g.blocks // q.tiles_n <= g.units_m
+            assert g.blocks <= qmm_ops.FILL_CTAS
+
+
+@pytest.mark.parametrize("dims,block,address,path", [
+    ((16896, 64, 576), (64, 64, 64), 0, "wgmma"),     # 132 units
+    ((16768, 64, 576), (64, 64, 64), 0, "mma"),       # 131 units
+    ((16896, 64, 576), (48, 64, 64), 0, "mma"),       # 48 rows: no wgmma m
+    ((16896, 64, 576), (192, 64, 64), 0, "mma"),      # three warpgroups
+    ((16896, 64, 576), (128, 64, 64), 0, "wgmma"),
+    ((16896, 64, 576), (64, 64, 64), 8, "mma"),       # x off the TMA grain
+    ((16896, 64, 576), (64, 64, 64), 16, "wgmma"),
+    ((16896, 160, 64), (64, 160, 64), 0, "mma"),      # bn past 128
+    ((16896, 128, 64), (64, 128, 64), 0, "wgmma"),
+    ((64, 32000, 576), (16, 32, 32), 0, "mma"),       # W2: 1000 columns
+    ((256, 8512, 64), (64, 64, 64), 0, "mma"),        # 133 columns
+    ((256, 8448, 64), (64, 64, 64), 0, "wgmma"),      # 132 columns
+    ((16896, 64, 147), (64, 64, 64), 8, "mma"),       # bulk needs the grain
+    ((50176, 128, 1280), (128, 128, 128), 0, "wgmma"),  # w 160 KB: 4 slots
+    ((50176, 128, 1408), (128, 128, 128), 0, "mma"),    # w 176 KB: 3
+], ids=["fill", "short", "bm48", "bm192", "bm128", "x8", "x16", "bn160",
+        "bn128", "w2", "columns", "columns132", "bulk8", "w-fits",
+        "w-too-wide"])
+def test_qmatmul_loop_rule_at_its_limits(dims, block, address, path):
+    """Each limit of the rule, on both sides."""
+    assert qmm_ops.plan(*dims, *block, x_address=address).path == path
+
+
+def _fixed(bn):
+    return 1024 + 4 * bn + 2 * 32 * 8
+
+
+@pytest.mark.parametrize("dims,block,expect", [
+    # (bulk, panel, kp, stages, blocks, x slot, smem)
+    ((802816, 64, 147), (64, 64, 64),
+     (True, 32, 160, 8, 132, 19456,
+      _fixed(64) + 160 * 64 + 2 * 128 * 160 + 8 * 19456)),
+    ((200704, 64, 576), (64, 64, 64),
+     (False, 128, 640, 10, 132, 16384, _fixed(64) + 640 * 64 + 10 * 16384)),
+    ((200704, 64, 576), (64, 32, 32),
+     (False, 128, 640, 12, 132, 16384, _fixed(32) + 640 * 32 + 12 * 16384)),
+    ((50176, 128, 1152), (128, 128, 96),
+     (False, 128, 1152, 4, 132, 16384,
+      _fixed(128) + 1152 * 128 + 4 * 16384)),
+    ((3136, 512, 4608), (64, 32, 64),
+     (False, 128, 4608, 4, 128, 16384, _fixed(32) + 4608 * 32 + 4 * 16384)),
+    ((20000, 800, 320), (64, 96, 96),
+     (False, 128, 384, 10, 126, 16384, _fixed(96) + 384 * 96 + 10 * 16384)),
+    ((18816, 384, 64), (64, 64, 64),
+     (False, 64, 64, 26, 132, 8192, _fixed(64) + 64 * 64 + 26 * 8192)),
+    ((1204224, 96, 16), (64, 96, 32),
+     (False, 32, 32, 32, 132, 4096, _fixed(96) + 32 * 96 + 32 * 4096)),
+], ids=["conv1-bulk", "conv2", "conv2-32", "conv3-bk96", "conv5-bn32",
+        "bn96", "panel64", "panel32"])
+def test_qmatmul_wgmma_layout(dims, block, expect):
+    """The wgmma loop's panel, ring and persistent grid, whatever the block's
+    bk, and its shared memory term by term (``wgmma_fixed_bytes``: alignment
+    slack, bias slice, barriers; then the resident w, the re-laid rows and
+    the ring's slots)."""
+    g = qmm_ops.plan(*dims, *block).wgmma
+    assert (g.bulk, g.panel, g.kp, g.stages, g.blocks, g.x_slot,
+            g.smem) == expect
+
+
+@pytest.mark.parametrize("dims", [c[0] for c in CELL_SHAPES], ids=str)
+def test_qmatmul_wgmma_ring_fills_the_shared_memory(dims):
+    """At every block of a cell shape's space that takes the wgmma loop, the
+    ring holds an even number of slots (each consumer warpgroup owns every
+    other one), as many as the card's shared memory leaves (two more would
+    not fit, unless it is at its cap) and at least the minimum, and the
+    layout follows the shape, not the block's bk."""
+    for b in _blocks(W.qmatmul(*dims)):
+        g = qmm_ops.plan(*dims, *b).wgmma
+        if g is None:
+            continue
+        assert qmm_ops.WG_MIN_STAGES <= g.stages <= qmm_ops.WG_MAX_STAGES
+        assert g.stages % 2 == 0
+        assert g.smem <= qmm_ops.SMEM_LIMIT
+        if g.stages < qmm_ops.WG_MAX_STAGES:
+            assert g.smem + 2 * g.x_slot > qmm_ops.SMEM_LIMIT, b
+        for bk in (32, 64, 96, 128):
+            assert qmm_ops.plan(*dims, b[0], b[1], bk).wgmma == g
+
+
+@pytest.mark.parametrize("dims", [c[0] for c in CELL_SHAPES], ids=str)
+def test_qmatmul_charged_the_loop_the_launch_takes(dims):
+    """At a cell shape ``concretize`` charges each block the shared memory
+    of the loop its launch takes: the wgmma loop's exact bytes where the
+    rule takes it (up to the card's limit, so every such block still fits),
+    else the mma.sync loop's; the static analyzer's floor at any smaller
+    block lies at or below it."""
+    wl = W.qmatmul(*dims)
+    blocks = _blocks(wl)
+    for b in blocks:
+        p = concretize(wl, H100, Schedule.fixed(variant="mxu_min", bm=b[0],
+                                                bn=b[1], bk=b[2]))
+        g = qmm_ops.plan(*dims, *b).wgmma
+        want = qmm_ops.smem_bytes(*b) if g is None else g.smem
+        assert space.matmul_block_bytes(wl, H100, *b) == want
+        assert p.vmem_bytes == want, b
+        assert want <= H100.vmem_capacity
+        for small in blocks:
+            if all(s <= d for s, d in zip(small, b)):
+                assert space.matmul_block_floor(wl, H100, *small) <= want
+
+
+@pytest.mark.parametrize("dims,block,path,bulk", CELL_SHAPES,
+                         ids=[str(c[0]) for c in CELL_SHAPES])
+def test_qmatmul_launch_key_names_one_kernel(dims, block, path, bulk):
+    """Blocks the wgmma loop takes at one bn share a launch key, whatever
+    their bm and bk; every mma.sync block keys on its own (bm, bn, bk).
+    So a cell shape's space holds as many keys as distinct launches."""
+    blocks = _blocks(W.qmatmul(*dims))
+    keys = {qmm_ops.launch_key(*dims, *b) for b in blocks}
+    wgmma_bn = {b[1] for b in blocks
+                if qmm_ops.plan(*dims, *b).path == "wgmma"}
+    mma = {b for b in blocks if qmm_ops.plan(*dims, *b).path == "mma"}
+    assert keys == {("wgmma", bn) for bn in wgmma_bn} | {
+        ("mma", *b) for b in mma}
+    assert qmm_ops.launch_key(*dims, *block)[0] == path
+    if path == "wgmma":
+        for bm in (64, 128):
+            for bk in (32, 64, 96, 128):
+                assert qmm_ops.launch_key(*dims, bm, block[1], bk) == \
+                    ("wgmma", block[1])
+        assert qmm_ops.launch_key(*dims, 32, block[1], 32)[0] == "mma"
+
+
+def test_qmatmul_launch_key_reaches_the_runner():
+    """``kernels.launch_key`` gives qmatmul's key for its params, blind to
+    order and accumulate, and None for the other ops."""
+    wl = W.qmatmul(200704, 64, 576)
+    a = concretize(wl, H100, Schedule.fixed(variant="mxu_min", bm=64, bn=64,
+                                            bk=32, order="mnk",
+                                            accumulate=True))
+    b = concretize(wl, H100, Schedule.fixed(variant="mxu_min", bm=128,
+                                            bn=64, bk=128, order="nmk",
+                                            accumulate=False))
+    assert a.valid and b.valid and a.signature() != b.signature()
+    assert kernels.launch_key(a) == kernels.launch_key(b) == ("wgmma", 64)
+    c = concretize(wl, H100, Schedule.fixed(variant="mxu_min", bm=32, bn=64,
+                                            bk=64, order="nmk"))
+    assert kernels.launch_key(c) == ("mma", 32, 64, 64)
+    v = W.vmacc(196, 192)
+    assert kernels.launch_key(concretize(
+        v, H100, fixed_library_schedule(v, H100))) is None
+
+
+def test_qmatmul_kernel_labels_and_census():
+    """Both loops' kernels by their mangled names; the SASS census asks
+    IGMMA of the wgmma loop's, IMMA of the mma.sync loop's, and refuses a
+    qmatmul kernel with neither. As the profiler prints them, both names
+    match the benchmark's pattern for qmm_kernel, only the wgmma loop's the
+    pattern of its qmm_wgmma_share."""
+    mma_name = "_ZN12_GLOBAL__N_110qmm_kernelILi2ELi1EEEvNS_4ArgsE"
+    wg_name = "_ZN12_GLOBAL__N_15wgmma10qmm_kernelILi128EEEvNS0_4ArgsE"
+    assert qmm_ops.kernel_label(mma_name) == "qmm_kernel<2,1>"
+    assert qmm_ops.kernel_label(wg_name) == "wgmma::qmm_kernel<128>"
+    assert qmm_ops.kernel_label("_ZN12_GLOBAL__N_112vmacc_kernelIfLi4EEEvv") \
+        is None
+    assert qmm_ops.census_fault("qmm_kernel<2,1>", "IMMA.16832.S8.S8") is None
+    assert qmm_ops.census_fault("wgmma::qmm_kernel<64>",
+                                "IGMMA.64x64x32.S8.S8 R24") is None
+    assert qmm_ops.census_fault("wgmma::qmm_kernel<64>", "IMMA.16832.S8.S8")
+    assert qmm_ops.census_fault("qmm_kernel<1,1>", "IGMMA.64x64x32.S8.S8")
+    assert qmm_ops.census_fault("qmm_kernel<1,1>", "IDP.4A.S8.S8")
+    printed = ["void (anonymous namespace)::qmm_kernel<2, 1>((anonymous "
+               "namespace)::Args)",
+               "void (anonymous namespace)::wgmma::qmm_kernel<64>((anonymous "
+               "namespace)::wgmma::Args)"]
+    assert all(re.search(r"\bqmm_kernel\b", name) for name in printed)
+    assert [bool(re.search(r"\bwgmma::qmm_kernel\b", name))
+            for name in printed] == [False, True]
+    assert "IGMMA" in qmm_ops.census_fault("wgmma::qmm_kernel<64>", "IMMA")
 
 
 def test_qmatmul_warps_within_launch_bounds():
@@ -333,7 +604,10 @@ def test_h100_traces_launch_and_are_charged_the_kernels_smem(wl):
         if wl.op == "qmatmul":
             assert qmm_ops.supports_block_shape(*p.block,
                                                 H100.vmem_capacity)
-            assert p.vmem_bytes == qmm_ops.smem_bytes(*p.block)
+            assert p.vmem_bytes == qmm_ops.block_smem(*wl.dims, *p.block)
+            g = qmm_ops.plan(*wl.dims, *p.block).wgmma
+            assert p.vmem_bytes == (qmm_ops.smem_bytes(*p.block) if g is None
+                                    else g.smem)
         else:
             assert p.vmem_bytes == space.vmacc_block_bytes(wl, H100,
                                                            *p.block) == 0
@@ -354,6 +628,13 @@ def test_footprints_nondecreasing_in_each_dim():
         for bk in dims:
             row = [qmm_ops.smem_bytes(bm, bn, bk) for bn in dims]
             assert row == sorted(row)
+            row = [qmm_ops.smem_floor(bm, bn, bk) for bn in dims]
+            assert row == sorted(row)
+            row = [qmm_ops.smem_floor(bm, bk, bn) for bn in dims]  # in bk
+            assert row == sorted(row)
+    for bn in dims:
+        col = [qmm_ops.smem_floor(bm, bn, 64) for bm in range(16, 257, 16)]
+        assert col == sorted(col)
     wl = W.vmacc(196, 192)
     for hw in (H100, V5E):
         grid = [[space.vmacc_block_bytes(wl, hw, br, bc)
