@@ -55,6 +55,14 @@ class ArchConfig:
     max_seq_len: int = 524288
     notes: str = ""
 
+    # --- switches of a published layer (:class:`PublishedArchConfig`) ---
+    # Class attributes here, not fields: the configs copied from the JAX
+    # package keep its fields, and read these defaults.
+    qkv_bias = False            # biases on the q, k and v projections
+    shared_expert_gate = False  # shared expert scaled by sigmoid(x @ w)
+    norm_topk_prob = True       # softmax over the top-k logits alone
+    moe_dropless = False        # every assignment reaches its expert
+
     # ---------------------------------------------------------------- sizes --
     @property
     def padded_vocab(self) -> int:
@@ -83,10 +91,14 @@ class ArchConfig:
             p += v * d
         attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
         mlp = 3 * d * f if self.act == "silu" else 2 * d * f
+        if self.qkv_bias:
+            attn += self.q_dim + 2 * self.kv_dim
         if self.family == "moe":
             fe = self.moe_d_ff
             moe = (self.n_experts * 3 * d * fe
                    + self.n_shared_experts * 3 * d * fe + d * self.n_experts)
+            if self.shared_expert_gate:
+                moe += d
             p += self.n_layers * (attn + moe + 2 * d)
         elif self.family == "ssm":
             d_in = self.ssm_expand * d
@@ -168,6 +180,19 @@ class ArchConfig:
         if self.mrope_sections:
             kw.update(mrope_sections=(4, 2, 2))
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class PublishedArchConfig(ArchConfig):
+    """An :class:`ArchConfig` whose layer switches are fields: a config that
+    follows a published checkpoint's layer where the JAX package's copy of
+    the same model departs from it (``qwen1_5_moe_a2_7b`` beside
+    ``qwen2_moe_a2_7b``). With the defaults it computes what an
+    ``ArchConfig`` of the same values computes."""
+    qkv_bias: bool = False
+    shared_expert_gate: bool = False
+    norm_topk_prob: bool = True
+    moe_dropless: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

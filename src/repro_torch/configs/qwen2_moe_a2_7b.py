@@ -1,6 +1,15 @@
 """qwen2-moe-a2.7b [moe] — 24L d_model=2048 16H (MHA kv=16) moe_d_ff=1408
 vocab=151936, 60 routed experts top-4 + 4 shared experts.
-[hf:Qwen/Qwen1.5-MoE-A2.7B; hf]"""
+[hf:Qwen/Qwen1.5-MoE-A2.7B; hf]
+
+The JAX package's simplified copy of that model, kept as the JAX package
+has it (its parity tests pair with it). It departs from the published
+layer in four ways: it renormalises the top-k weights (a softmax over the
+top-k logits alone, where the published router keeps the softmax over all
+60 unrenormalised); its shared expert has no sigmoid gate; its q, k and v
+projections have no biases; and it routes with capacity, padding the
+experts to 64, so assignments past an expert's capacity are dropped. The
+published model is ``qwen1_5_moe_a2_7b``."""
 
 from repro_torch.configs.base import ArchConfig
 

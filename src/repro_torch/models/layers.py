@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 
 # ----------------------------------------------------- activation sharding --
@@ -449,11 +450,19 @@ def _rotate(x, angles):
     return out.to(x.dtype)
 
 
+def _rope_freqs_on(head_dim: int, theta: float, device: torch.device):
+    """:func:`_rope_freqs` in f32, computed on ``device`` as numpy computes
+    them, in float64: a copy from the host would make the host wait for
+    the card (a copy from pageable memory synchronises its stream), and a
+    step captured as a CUDA graph may not copy from the host at all."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float64,
+                        device=device) / head_dim
+    return (1.0 / torch.pow(theta, exps)).float()
+
+
 def apply_rope(x, positions, theta: float):
     """x (..., S, H, D); positions (..., S) integer."""
-    d = x.shape[-1]
-    freqs = torch.as_tensor(_rope_freqs(d, theta), dtype=torch.float32,
-                            device=x.device)  # (D/2,)
+    freqs = _rope_freqs_on(x.shape[-1], theta, x.device)  # (D/2,)
     angles = positions[..., None].float() * freqs  # (..., S, D/2)
     return _rotate(x, angles)
 
@@ -479,15 +488,27 @@ def apply_mrope(x, positions, theta: float, sections: tuple[int, ...]):
 
 # ----------------------------------------------------------------- attention --
 
+# The spread of the q, k and v biases a ``qkv_bias`` config draws: half
+# that of the projections' outputs, so that they count (a published
+# checkpoint's are of that size).
+QKV_BIAS_STD = 0.5
+
+
 def init_attention(cfg: ArchConfig, generator: torch.Generator,
                    stack: tuple[int, ...] = ()):
     d = cfg.d_model
-    return {
+    p = {
         "wq": _dense_init((*stack, d, cfg.q_dim), generator),
         "wk": _dense_init((*stack, d, cfg.kv_dim), generator),
         "wv": _dense_init((*stack, d, cfg.kv_dim), generator),
         "wo": _dense_init((*stack, cfg.q_dim, d), generator),
     }
+    if cfg.qkv_bias:
+        for name, width in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
+                            ("bv", cfg.kv_dim)):
+            p[name] = _dense_init((*stack, width), generator,
+                                  scale=QKV_BIAS_STD)
+    return p
 
 
 def split_heads(y, heads: int, head_dim: int):
@@ -525,10 +546,13 @@ def merge_heads(y):
 
 
 def _qkv(x, p, cfg: ArchConfig):
-    q = split_heads(x @ p["wq"].to(x.dtype), cfg.n_heads, cfg.head_dim)
-    k = split_heads(x @ p["wk"].to(x.dtype), cfg.n_kv_heads, cfg.head_dim)
-    v = split_heads(x @ p["wv"].to(x.dtype), cfg.n_kv_heads, cfg.head_dim)
-    return q, k, v
+    q, k, v = (x @ p[w].to(x.dtype) for w in ("wq", "wk", "wv"))
+    if cfg.qkv_bias:
+        q, k, v = (y + p[b].to(x.dtype)
+                   for y, b in zip((q, k, v), ("bq", "bk", "bv")))
+    return (split_heads(q, cfg.n_heads, cfg.head_dim),
+            split_heads(k, cfg.n_kv_heads, cfg.head_dim),
+            split_heads(v, cfg.n_kv_heads, cfg.head_dim))
 
 
 # True while a layer body runs under a checkpoint of the whole layer
@@ -660,7 +684,9 @@ def _sdpa(q, k, v, rows, cols, window: int = -1, causal: bool = True):
     if group > 1:  # jnp.repeat's order: query head h reads KV head h // group
         k = k.repeat_interleave(group, dim=2)
         v = v.repeat_interleave(group, dim=2)
-    c = min(ATTN_CHUNK, t)
+    # a single query a row (decode) holds one row of scores, never an
+    # (S, T) block: its keys are read in one chunk
+    c = t if s == 1 else min(ATTN_CHUNK, t)
     pad = (-t) % c
     if pad:
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
@@ -772,11 +798,31 @@ def attention_decode(x, p, cfg: ArchConfig, k_cache, v_cache, pos: int,
     ``ring``: the cache is a ring buffer of length T (= the static window);
     writes land at ``pos % T`` and key positions are reconstructed per slot.
 
+    ``pos`` may also be a 0-dim int32 tensor on the cache's device (a step
+    captured as a CUDA graph, whose position changes between replays): the
+    same step, its write and its mask read from the device, for a cache
+    that is neither a ring nor sliced to a static window.
+
     Returns (out, k_cache, v_cache)."""
+    with tracing.span("attention.decode"):
+        if torch.is_tensor(pos):
+            if ring or (DECODE_WINDOW_SLICING and static_window is not None
+                        and 0 < static_window < k_cache.shape[1]):
+                raise ValueError("a position held on the device needs a "
+                                 "cache that is neither ring nor sliced")
+        else:
+            pos = int(pos)
+        return _attention_decode(x, p, cfg, k_cache, v_cache, pos,
+                                 window, mrope_positions, static_window, ring)
+
+
+def _attention_decode(x, p, cfg: ArchConfig, k_cache, v_cache, pos,
+                      window: int, mrope_positions, static_window, ring):
     b, s, _ = x.shape
-    pos = int(pos)
     q, k, v = _qkv(x, p, cfg)
-    positions = torch.full((b, s), pos, dtype=torch.int32, device=x.device)
+    on_device = torch.is_tensor(pos)
+    positions = (pos.expand(b, s) if on_device else
+                 torch.full((b, s), pos, dtype=torch.int32, device=x.device))
     if cfg.mrope_sections and mrope_positions is not None:
         q = apply_mrope(q, mrope_positions, cfg.rope_theta, cfg.mrope_sections)
         k = apply_mrope(k, mrope_positions, cfg.rope_theta, cfg.mrope_sections)
@@ -785,10 +831,17 @@ def attention_decode(x, p, cfg: ArchConfig, k_cache, v_cache, pos: int,
         k = apply_rope(k, positions, cfg.rope_theta)
     t = k_cache.shape[1]
     # dynamic_update_slice's clamp: the write stays inside the cache
-    write_pos = min(pos % t if ring else pos, t - s)
-    k_cache[:, write_pos:write_pos + s] = k.to(k_cache.dtype)
-    v_cache[:, write_pos:write_pos + s] = v.to(v_cache.dtype)
-    rows = torch.full((s,), pos, dtype=torch.int32, device=x.device)
+    if on_device:
+        slots = (torch.clamp(pos, max=t - s)
+                 + torch.arange(s, device=x.device)).long()
+        k_cache.index_copy_(1, slots, k.to(k_cache.dtype))
+        v_cache.index_copy_(1, slots, v.to(v_cache.dtype))
+        rows = pos.expand(s)
+    else:
+        write_pos = min(pos % t if ring else pos, t - s)
+        k_cache[:, write_pos:write_pos + s] = k.to(k_cache.dtype)
+        v_cache[:, write_pos:write_pos + s] = v.to(v_cache.dtype)
+        rows = torch.full((s,), pos, dtype=torch.int32, device=x.device)
     k_use, v_use = k_cache, v_cache
     if ring:
         cols = ring_positions(pos, t, device=x.device)

@@ -51,7 +51,7 @@ class ModelBundle:
     device: torch.device = torch.device("cuda")
 
 
-def _param_device(params) -> torch.device:
+def param_device(params) -> torch.device:
     if isinstance(params, dict):  # a cast_params tree
         return transformer.tree_tensors(params)[0].device
     return next(params.parameters()).device
@@ -59,7 +59,7 @@ def _param_device(params) -> torch.device:
 
 def _inputs(params, batch: dict) -> dict:
     """The batch's entries as tensors on the parameters' device."""
-    device = _param_device(params)
+    device = param_device(params)
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
@@ -109,7 +109,7 @@ def build(cfg: ArchConfig, remat: str = "full",
         return mod.prefill(params, *args, cfg, max_len, **kwargs)
 
     def decode_fn(params, cache, tokens, pos):
-        tokens = torch.as_tensor(tokens, device=_param_device(params))
+        tokens = torch.as_tensor(tokens, device=param_device(params))
         return mod.decode_step(params, cache, tokens, pos, cfg)
 
     def init_cache(b, t):

@@ -5,7 +5,11 @@ Routing uses top-k softmax with capacity-bounded sort-free dispatch
 (scatter into per-expert slot buffers), which keeps dispatch memory at
 O(tokens·top_k) instead of the O(tokens·experts·capacity) einsum form.
 Experts are padded up to a multiple of 16 when needed (60 -> 64 for
-qwen2-moe); the padding experts are never routed to.
+qwen2-moe); the padding experts are never routed to. A config that follows
+a published layer may switch to a dropless path instead (``moe_dropless``:
+each expert runs on exactly the tokens routed to it, none padded), to
+unrenormalised top-k weights (``norm_topk_prob`` false) and to a shared
+expert gated by ``sigmoid(x @ shared_gate)`` (``shared_expert_gate``).
 
 The routing is the reference's decision for decision: ``lax.top_k``'s
 lower-index-first order on ties, the stable sort that gives earlier tokens
@@ -23,13 +27,19 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 
 def padded_experts(cfg: ArchConfig, ep: int = 16) -> int:
+    """Experts held: padded up to a multiple of ``ep`` for the capacity
+    path's expert-parallel slot buffer; the dropless path has none, and
+    holds the published count."""
     e = cfg.n_experts
+    if cfg.moe_dropless:
+        return e
     return ((e + ep - 1) // ep) * ep if e % ep else e
 
 
@@ -51,6 +61,8 @@ def _init_layers(cfg: ArchConfig, generator: torch.Generator) -> dict:
     if cfg.n_shared_experts:
         p["shared"] = L.init_mlp(d, cfg.n_shared_experts * cfg.moe_d_ff,
                                  "silu", generator, stack)
+    if cfg.shared_expert_gate:
+        p["shared_gate"] = L._dense_init(stack + (d, 1), generator)
     return p
 
 
@@ -78,17 +90,29 @@ def route(x, router, cfg: ArchConfig):
     return L.by_rows(_route_rows, logits, x.dtype, cfg)
 
 
-def _route_rows(logits, dtype, cfg: ArchConfig):
-    b, s, _ = logits.shape
-    e = padded_experts(cfg)
-    k = cfg.top_k
+def top_k(logits, cfg: ArchConfig):
+    """Each token's ``cfg.top_k`` experts, best first (a tie goes to the
+    lower index, as ``lax.top_k``'s), and their f32 weights: the softmax of
+    the top-k logits alone (``norm_topk_prob``), or the softmax over every
+    expert's logit, kept unrenormalised. ``logits`` (..., E) f32."""
+    e = logits.shape[-1]
     if e != cfg.n_experts:  # padding experts are never routed to
         pad_mask = torch.arange(e, device=logits.device) >= cfg.n_experts
         logits = logits.masked_fill(pad_mask, -1e30)
     # a stable descending sort keeps the lower index first among equals
     gate_vals, sel = torch.sort(logits, dim=-1, descending=True, stable=True)
-    gate_vals, sel = gate_vals[..., :k], sel[..., :k]         # (B, S, k)
-    gates = torch.softmax(gate_vals, dim=-1).to(dtype)
+    gate_vals, sel = gate_vals[..., :cfg.top_k], sel[..., :cfg.top_k]
+    if cfg.norm_topk_prob:
+        return sel, torch.softmax(gate_vals, dim=-1)
+    return sel, torch.gather(torch.softmax(logits, dim=-1), -1, sel)
+
+
+def _route_rows(logits, dtype, cfg: ArchConfig):
+    b, s, _ = logits.shape
+    e = padded_experts(cfg)
+    k = cfg.top_k
+    sel, gates = top_k(logits, cfg)                           # (B, S, k)
+    gates = gates.to(dtype)
 
     cap = max(8, int(math.ceil(s * k / e * cfg.capacity_factor)))
     flat_sel = sel.reshape(b, s * k)                          # (B, S*k)
@@ -143,30 +167,89 @@ def _expert_mlp(expert_in, we: dict):
     return torch.einsum("becf,efd->becd", gate_h * up_h, we["w_down"])
 
 
-def moe_ffn(x, lp, cfg: ArchConfig):
-    """x (B, S, D) -> (B, S, D): top-k routed experts + shared experts.
-
-    Dispatch is grouped by batch row: the capacity count runs along S
-    within each row."""
+def _capacity_experts(x, lp, cfg: ArchConfig):
+    """The routed experts' part of the layer through capacity-bounded slot
+    buffers: every held expert runs on its ``cap`` slots, and assignments
+    past an expert's capacity are dropped. Dispatch is grouped by batch
+    row: the capacity count runs along S within each row."""
     b, s, d = x.shape
     e = padded_experts(cfg)
     k = cfg.top_k
-    _, gates, slot, cap = route(x, lp["router"], cfg)
+    with tracing.span("moe.route"):
+        _, gates, slot, cap = route(x, lp["router"], cfg)
+    if tracing.recording():  # a count that waits for the card
+        tracing.count("moe.dropped", int((slot == e * cap).sum()))
 
-    x_rep = L.shard_act(x.repeat_interleave(k, dim=1))        # (B, S*k, D)
-    expert_in = L.shard_expert(
-        _dispatch(x_rep, slot, e * cap).reshape(b, e, cap, d))
+    with tracing.span("moe.experts"):
+        x_rep = L.shard_act(x.repeat_interleave(k, dim=1))    # (B, S*k, D)
+        expert_in = L.shard_expert(
+            _dispatch(x_rep, slot, e * cap).reshape(b, e, cap, d))
 
-    we = {k: w.to(x.dtype) for k, w in lp["experts"].items()}
-    out = L.experts_local(_expert_mlp, expert_in, we)
+        we = {k: w.to(x.dtype) for k, w in lp["experts"].items()}
+        out = L.experts_local(_expert_mlp, expert_in, we)
 
-    out_flat = L.shard_expert(out).reshape(b, e * cap, d)
-    gathered = _combine(out_flat, slot, e * cap)
-    y = (gathered.reshape(b, s, k, d) * gates[..., None]).sum(dim=2)
+        out_flat = L.shard_expert(out).reshape(b, e * cap, d)
+        gathered = _combine(out_flat, slot, e * cap)
+        y = (gathered.reshape(b, s, k, d) * gates[..., None]).sum(dim=2)
+    tracing.count("moe.experts_read", e)
+    return y
 
-    if cfg.n_shared_experts:
-        y = y + L.mlp(x, lp["shared"], "silu")
-    return L.residual_branch(y)
+
+def _dropless_experts(x, lp, cfg: ArchConfig):
+    """The routed experts' part of the layer with no capacity: the B·S·k
+    assignments sorted by expert, and each expert's gate, up and down
+    projections run on exactly its rows by one grouped matmul each
+    (``torch._grouped_mm``: an expert that no token chose is an empty
+    group, whose weights are never read); each token's k results summed
+    with their weights in f32, in the token's own order (no atomics). The
+    expert counts stay on the card: the host never waits here, except to
+    count the experts read while spans are recorded."""
+    b, s, d = x.shape
+    k = cfg.top_k
+    with tracing.span("moe.route"):
+        logits = (x @ lp["router"].to(x.dtype)).float()
+        sel, gates = top_k(logits, cfg)
+        flat = sel.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        # each expert's last row + 1 in the sorted order (``bincount``
+        # would wait for the card to size its output)
+        ends = torch.searchsorted(
+            flat[order], torch.arange(cfg.n_experts, device=flat.device),
+            right=True).to(torch.int32)
+    if tracing.recording():  # a count that waits for the card
+        read = torch.diff(ends, prepend=ends.new_zeros(1)) > 0
+        tracing.count("moe.experts_read", int(read.sum()))
+    with tracing.span("moe.experts"):
+        rows = x.reshape(b * s, d)[order // k]     # (B*S*k, D) by expert
+        we = {name: w.to(x.dtype) for name, w in lp["experts"].items()}
+        act = F.silu(torch._grouped_mm(rows, we["w_gate"], offs=ends)) \
+            * torch._grouped_mm(rows, we["w_up"], offs=ends)
+        out = torch.empty_like(rows)
+        out[order] = torch._grouped_mm(act, we["w_down"], offs=ends)
+        y = (out.reshape(b, s, k, d).float() * gates[..., None]).sum(dim=2)
+    tracing.count("moe.dropped", 0)
+    return y.to(x.dtype)
+
+
+def moe_ffn(x, lp, cfg: ArchConfig):
+    """x (B, S, D) -> (B, S, D): top-k routed experts + shared experts, the
+    shared ones scaled by ``sigmoid(x @ shared_gate)`` where the config
+    gates them (``shared_expert_gate``)."""
+    b, s, _ = x.shape
+    with tracing.span("moe.ffn"):
+        tracing.count("moe.assignments", b * s * cfg.top_k)
+        if cfg.moe_dropless:
+            y = _dropless_experts(x, lp, cfg)
+        else:
+            y = _capacity_experts(x, lp, cfg)
+        if cfg.n_shared_experts:
+            with tracing.span("moe.shared"):
+                shared = L.mlp(x, lp["shared"], "silu")
+                if cfg.shared_expert_gate:
+                    shared = torch.sigmoid(
+                        x @ lp["shared_gate"].to(x.dtype)) * shared
+                y = y + shared
+        return L.residual_branch(y)
 
 
 def _block(x, lp, window: int, cfg: ArchConfig, positions):

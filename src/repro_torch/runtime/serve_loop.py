@@ -22,7 +22,24 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.workload import Workload, gemv, matmul
+from repro_torch.models.model_zoo import param_device
+
+
+@dataclasses.dataclass
+class DecodeState:
+    """Where a batch of requests stands between two decode steps: the KV
+    cache, the position the next step writes, the tokens it feeds (on the
+    device), the tokens last produced (on the host, as a streaming server
+    sends them) and the logits that produced them (on the device); and
+    its step captured as a CUDA graph, where the server captures one."""
+    cache: dict
+    pos: int
+    next_tok: torch.Tensor   # (B,) int32
+    tokens: np.ndarray       # (B,)
+    logits: torch.Tensor     # (B, V)
+    graph: "_StepGraph | None" = None  # the step captured, on a card
 
 
 @dataclasses.dataclass
@@ -35,6 +52,48 @@ class GenerationResult:
     # ("tuned"/"bucketed"/"fixed"/"xla"); None when the server was built
     # without a dispatch layer (hw=None)
     dispatch: dict[str, int] | None = None
+
+
+class _StepGraph:
+    """One decode step of a state captured as a CUDA graph: the tokens it
+    feeds and the position it writes are read from buffers of its own,
+    filled before each replay, so one capture serves every later step of
+    the state; the cache is the state's own, written in place. The logits
+    and tokens it produces are its buffers too, overwritten by the next
+    replay. A replay runs no Python: it records no span and counts
+    nothing."""
+
+    def __init__(self, server: "Server", state: DecodeState):
+        self.tok = state.next_tok.clone()
+        self.pos = torch.full((), state.pos, dtype=torch.int32,
+                              device=server.device)
+
+        def body():
+            logits, cache = server.bundle.decode_fn(
+                server.params, state.cache, self.tok[:, None], self.pos)
+            if cache is not state.cache:
+                raise ValueError("a captured step needs a decode that "
+                                 "writes its cache in place")
+            return logits, torch.argmax(logits, dim=-1).to(torch.int32)
+
+        # warm-up off the capture: it writes the cache slot the first
+        # replay writes, with the same values
+        main = torch.cuda.current_stream(server.device)
+        side = torch.cuda.Stream(server.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            body()
+        main.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.logits, self.next = body()
+
+    def replay(self, state: DecodeState):
+        """The step of ``state``: (logits, tokens) on the device."""
+        self.tok.copy_(state.next_tok)
+        self.pos.fill_(state.pos)
+        self.graph.replay()
+        return self.logits, self.next
 
 
 def decode_ops(cfg, batch: int) -> list[tuple[int, Workload]]:
@@ -67,13 +126,28 @@ def decode_ops(cfg, batch: int) -> list[tuple[int, Workload]]:
 class Server:
     """Minimal batched server: a fixed batch of requests is prefilled once,
     then decoded greedily step by step (one decode step reused across
-    positions, called directly; the JAX package jits it).
+    positions, called directly; the JAX package jits it). :meth:`prefill`
+    and :meth:`step` are the step-level API a serving loop drives;
+    :meth:`generate` runs them for a fixed number of steps. ``params`` is
+    a :class:`~repro_torch.models.transformer.Model` or a nested dict of
+    tensors under the same names (weights held as a checkpoint stores
+    them, in its dtype).
 
     ``hw`` + ``serve_ops`` attach the dispatch layer: every ``generate``
     resolves each serve op once through the four-rung chain against
     ``database`` (default: the hot-swapping ``global_database()``) and
     records misses into ``traffic`` — the serving side of the
     continuous-tuning loop.
+
+    ``cuda_graph=True`` replays each state's decode step as a CUDA graph
+    on a card (:class:`_StepGraph`, captured at the state's first step),
+    so that the host launches one graph a step instead of every operation
+    of the model; steps taken while spans are recorded
+    (:func:`repro_torch.tracing.recording`) run eagerly, so that their
+    spans and counters are kept. For a family whose decode writes its
+    cache in place, takes its position as a device tensor and waits for
+    the host nowhere (the MoE family in bf16, whose grouped matmuls keep
+    their group offsets on the card, without a ring or sliced cache).
 
     ``build_kernels=True`` additionally builds each resolved schedule's
     CUDA kernel, on the device of the model's parameters, during the
@@ -85,7 +159,7 @@ class Server:
 
     def __init__(self, bundle, params, max_len: int = 256,
                  hw=None, serve_ops=None, traffic=None, database=None,
-                 build_kernels: bool = False):
+                 build_kernels: bool = False, cuda_graph: bool = False):
         self.bundle = bundle
         self.params = params
         self.max_len = max_len
@@ -94,7 +168,8 @@ class Server:
         self.traffic = traffic
         self.database = database
         self.build_kernels = build_kernels
-        self.device = next(params.parameters()).device
+        self.device = param_device(params)
+        self.cuda_graph = cuda_graph and self.device.type == "cuda"
         # signatures of the lowerings already launched once by _build_kernel
         self._launched: set = set()
 
@@ -146,36 +221,68 @@ class Server:
             torch.cuda.synchronize(self.device)
 
     @torch.no_grad()
+    def prefill(self, prompts, extra_batch: dict | None = None
+                ) -> DecodeState:
+        """Prefill ``prompts`` (B, S) into a cache of ``max_len`` positions
+        and pick each row's first token greedily: the state the first
+        :meth:`step` decodes from."""
+        with tracing.span("serve.prefill"):
+            batch = {"tokens": prompts}
+            if extra_batch:
+                batch.update(extra_batch)
+            logits, cache = self.bundle.prefill_fn(self.params, batch,
+                                                   self.max_len)
+            logits = logits[:, -1]
+            next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            return DecodeState(cache, prompts.shape[1], next_tok,
+                               next_tok.cpu().numpy(), logits)
+
+    @torch.no_grad()
+    def step(self, state: DecodeState) -> np.ndarray:
+        """One greedy decode step of every row: feeds ``state.next_tok`` at
+        ``state.pos``, advances ``state`` and returns the new tokens (B,),
+        once they are on the host. On a server with ``cuda_graph``, the
+        state's ``logits`` and ``next_tok`` are then the graph's buffers,
+        which the next step overwrites."""
+        with tracing.span("serve.step"):
+            if self.cuda_graph and not tracing.recording():
+                if state.graph is None:
+                    state.graph = _StepGraph(self, state)
+                logits, next_tok = state.graph.replay(state)
+            else:
+                logits, state.cache = self.bundle.decode_fn(
+                    self.params, state.cache, state.next_tok[:, None],
+                    state.pos)
+                next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            state.next_tok = next_tok
+            state.pos += 1
+            state.logits = logits
+            state.tokens = next_tok.cpu().numpy()
+            return state.tokens
+
+    @torch.no_grad()
     def generate(self, prompts: np.ndarray, n_steps: int,
                  extra_batch: dict | None = None) -> GenerationResult:
         dispatch = self.resolve_dispatch()
-        b, s = prompts.shape
-        batch = {"tokens": prompts}
-        if extra_batch:
-            batch.update(extra_batch)
+        b = prompts.shape[0]
 
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = self.bundle.prefill_fn(self.params, batch,
-                                               self.max_len)
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        state = self.prefill(prompts, extra_batch)
         self._sync()
         prefill_s = time.perf_counter() - t0
 
         # the prefill argmax is the *first* generated token, so it counts
         # against n_steps: n_steps=0 emits nothing (tokens == prompts) and
         # the result always has exactly prompt + n_steps columns
-        out = [next_tok] if n_steps > 0 else []
+        out = [state.tokens] if n_steps > 0 else []
         t0 = time.perf_counter()
-        for i in range(n_steps - 1):
-            logits, cache = self.bundle.decode_fn(self.params, cache,
-                                                  next_tok[:, None], s + i)
-            next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
-            out.append(next_tok)
+        for _ in range(n_steps - 1):
+            out.append(self.step(state))
         self._sync()
         decode_s = time.perf_counter() - t0
 
-        gen = (torch.stack(out, dim=1).cpu().numpy().astype(prompts.dtype)
+        gen = (np.stack(out, axis=1).astype(prompts.dtype)
                if out else np.zeros((b, 0), dtype=prompts.dtype))
         return GenerationResult(np.concatenate([prompts, gen], axis=1),
                                 prefill_s, decode_s, n_steps, dispatch)

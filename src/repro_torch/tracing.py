@@ -15,7 +15,9 @@ own work and the time it did not run: waiting for the interpreter lock, or
 blocked.
 
 Counters are always on: :func:`count` adds to an integer of its own
-thread's, with no lock, and :func:`counters` sums every thread's.
+thread's, with no lock, and :func:`counters` sums every thread's. A count
+that would make the host wait for the card is made only while recording
+(:func:`recording`).
 
 This module imports nothing of the package, so every layer may use it.
 """
@@ -114,6 +116,12 @@ def span(name: str, cpu: bool = False, **attrs):
 def enable() -> None:
     global _enabled
     _enabled = True
+
+
+def recording() -> bool:
+    """Whether spans are being recorded: a count that costs a wait for the
+    card is made only then."""
+    return _enabled
 
 
 def disable() -> None:
