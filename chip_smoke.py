@@ -154,13 +154,20 @@ Phases (any failure exits nonzero and prints no result line):
      ``_acc_kernel`` and ``_noacc_kernel`` at W3, the f32 ``_acc_kernel`` at
      MobileNetV2 f32's costliest matmul and DCGAN's 1024 x 64 x 512 on
      both; the 3xTF32 figure beside the bound of every f32 matmul and
-     attention row). A row's bound counts
+     attention row); ``_decode_attention`` at the decode cell's
+     4 x 8192 x 16 x 128 bf16 cache (position 4104) and at MobileLLM's 9/3
+     heads of 64 (batch 4, 2048 slots, position 1500), against its plain
+     version first, SDPA in bf16 over the visible positions its library
+     call. A row's bound counts
      the bytes and operations of the function's real, unpadded operands
      and output;
   6. the serving path: MobileLLM-125M unreduced (30 layers, d_model 576,
      9 query and 3 KV heads, bf16 compute on f32 master weights from a
      seeded generator) through ``Server`` with 64-token prompts and 32
-     generated tokens. At batch 1 and at batch 4: a cold round must resolve
+     generated tokens. First ``_decode_attention`` against its plain
+     version at its heads, batch 1 and 4, the rounds' first and last
+     positions. At batch 1 and at batch 4 (each must launch
+     ``_decode_attention``): a cold round must resolve
      {"fixed": 151} and leave the five decode shapes in the ``TrafficLog``,
      one ``ContinuousTuner.tune_once()`` on ``CudaRunner`` (16 trials a
      shape) tunes them (the gemv kernels at batch 1, the bf16 matmul
@@ -197,8 +204,9 @@ Phases (any failure exits nonzero and prints no result line):
   8. the other model families: (a) Qwen1.5-MoE-A2.7B at its published
      widths (24 layers, d_model 2048, 16 heads of 128, 60 experts padded
      to 64 of width 1408, top-4, 4 shared, vocab 151936 untied, bf16
-     compute), its weight casts timed, through ``serve_rounds`` at batch 1
-     and 4 as phase 6 ({"fixed": 121} cold, {"tuned": 121} after one
+     compute), its weight casts timed, ``_decode_attention`` against its
+     plain version at its heads as in phase 6, through ``serve_rounds`` at
+     batch 1 and 4 as phase 6 ({"fixed": 121} cold, {"tuned": 121} after one
      cycle, no build in the steady state, tuned outputs against plain),
      one decode step profiled; (b) in f32, greedy decode equal to the
      forward's argmax at a capacity factor that drops nothing (reported at
@@ -329,6 +337,8 @@ REPLACES = {
     "_gemv_noacc_kernel": "src/repro/kernels/gemv/kernel.py:38",
     "_vmacc_kernel": "src/repro/kernels/vmacc/kernel.py:20",
     "_fa_kernel": "src/repro/kernels/flash_attention/kernel.py:25",
+    "_decode_attention": "none: the JAX package's decode attention is "
+                         "XLA's einsums (src/repro/models/layers.py _sdpa)",
 }
 SOURCE = {
     "_acc_kernel": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -338,6 +348,7 @@ SOURCE = {
     "_gemv_noacc_kernel": "src/repro_torch/kernels/csrc/gemv.cu",
     "_vmacc_kernel": "src/repro_torch/kernels/csrc/vmacc.cu",
     "_fa_kernel": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "_decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
 }
 
 
@@ -386,6 +397,117 @@ def attention_visible_ops(wl) -> float:
     else:
         pairs = lq * lkv
     return 4.0 * b * hq * pairs * d
+
+
+# The decode-attention kernel, the serving path's own: timed in phase 5 at
+# the decode cell's shape (Qwen1.5-MoE-A2.7B at batch 4, an 8192-slot bf16
+# cache, the traced window's first position) and at MobileLLM-125M's
+# grouped heads; held to its plain version in phases 6 and 8 at their
+# models' shapes.
+DECODE_ATTENTION_SHAPES = (
+    ("Qwen1.5-MoE decode cell batch 4, pos 4104", 4, 8192, 16, 16, 128, 4104),
+    ("MobileLLM-125M batch 4, pos 1500", 4, 2048, 9, 3, 64, 1500),
+)
+
+
+def decode_attention_operands(b, t, hq, hkv, d):
+    """q (b, 1, hq, d) scaled by 3 (peaked scores) and a (b, t, hkv, d)
+    cache, bf16, drawn on the card."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q = 3.0 * torch.randn(b, 1, hq, d, generator=g, device="cuda")
+    k = torch.randn(b, t, hkv, d, generator=g, device="cuda")
+    v = torch.randn(b, t, hkv, d, generator=g, device="cuda")
+    return q.bfloat16(), k.bfloat16(), v.bfloat16()
+
+
+def decode_attention_against_plain(label, q, k, v, pos) -> float:
+    """The kernel at ``pos``, passed by value and then as a 0-dim tensor,
+    against its plain version with the kernel's splits; fails beyond one
+    bf16 ulp of the output (the f32 sums' order moving it across a rounding
+    boundary) plus 2**-10 max|v| (a probability's rounding flipping the
+    same way). Returns the largest difference."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention import plain
+
+    b, _, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    splits = dk.splits_for(b, hkv, t, hq // hkv, dk._sm_count(0))
+    want = plain.decode_attention_plain(q, k, v, pos, -1, splits).float()
+    worst = 0.0
+    for where in (pos, torch.tensor(pos, dtype=torch.int32, device="cuda")):
+        got = dk.decode_attention(q, k, v, where).float()
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        bound = 2**-8 * want.abs() + 2**-10 * v.float().abs().max()
+        worst = max(worst, float(err.max()))
+        if not bool((err <= bound).all()):
+            raise RuntimeError(f"_decode_attention {label} at {pos}: max "
+                               f"|diff| {float(err.max()):.3g} beyond its "
+                               f"bound")
+    return worst
+
+
+def decode_attention_at(cfg, max_len: int) -> None:
+    """Phases 6 and 8: the kernel against its plain version at ``cfg``'s
+    attention heads, batch 1 and 4, a ``max_len`` cache, at the serving
+    rounds' first and last positions."""
+    for batch in (1, 4):
+        q, k, v = decode_attention_operands(batch, max_len, cfg.n_heads,
+                                            cfg.n_kv_heads, cfg.head_dim)
+        worst = max(decode_attention_against_plain(
+            f"{cfg.name} batch {batch}", q, k, v, pos)
+            for pos in (SERVE_PROMPT, max_len - 1))
+        print(f"  _decode_attention {cfg.name} batch {batch} ({cfg.n_heads}"
+              f"/{cfg.n_kv_heads} heads of {cfg.head_dim}, {max_len} slots, "
+              f"positions {SERVE_PROMPT} and {max_len - 1}) vs plain: max "
+              f"|diff| {worst:.3g} ok")
+
+
+def decode_attention_row(timer, label, b, t, hq, hkv, d, pos) -> dict:
+    """Phase 5's row of the decode-attention kernel at one shape: the kernel,
+    its plain version and SDPA in bf16 over the visible positions (the
+    library's yardstick, which the port never calls), each timed by
+    ``timer``, and the bound: the visible K and V, q and the output at the
+    HBM rate."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention import plain
+
+    q, k, v = decode_attention_operands(b, t, hq, hkv, d)
+    err = decode_attention_against_plain(label, q, k, v, pos)
+    n = pos + 1
+    splits = dk.splits_for(b, hkv, t, hq // hkv, dk._sm_count(0))
+    qs = q.transpose(1, 2)
+    ks, vs = k[:, :n].transpose(1, 2), v[:, :n].transpose(1, 2)
+    nbytes = 2 * (q.numel() * 2 + 2 * b * n * hkv * d)
+    bound = max(nbytes / HBM_BYTES_PER_S, 4.0 * b * hq * n * d
+                / PEAK_OPS["bfloat16"]) * 1e3
+    r = {"name": "_decode_attention", "route": "cuda",
+         "source": SOURCE["_decode_attention"],
+         "replaces": REPLACES["_decode_attention"], "launches": 0,
+         "max_abs_err": err,
+         "ms": timer(dk.decode_attention, (q, k, v, pos)) * 1e3,
+         "plain_ms": timer(plain.decode_attention_plain,
+                           (q, k, v, pos, -1, splits)) * 1e3,
+         "bound_ms": bound, "bound_by": "bytes",
+         "library_ms": timer(lambda a, b_, c: F.scaled_dot_product_attention(
+             a, b_, c, scale=d ** -0.5, enable_gqa=True),
+             (qs, ks, vs)) * 1e3,
+         "workload": label, "block": [splits]}
+    print(f"  _decode_attention {label} ({splits} splits): kernel "
+          f"{r['ms']*1e3:.2f} us, plain {r['plain_ms']*1e3:.2f} us, SDPA "
+          f"bf16 {r['library_ms']*1e3:.2f} us, bound "
+          f"{r['bound_ms']*1e3:.3f} us (bytes), "
+          f"{100 * r['bound_ms'] / r['ms']:.1f} % of it")
+    del q, k, v, qs, ks, vs
+    torch.cuda.empty_cache()
+    return r
 
 
 # Phase 6: MobileLLM-125M unreduced through the serving path. Prompts of the
@@ -680,9 +802,11 @@ def serving_phase(runner, card_line: str, close) -> dict[str, int]:
                                                  batch, "decode"),
                                  train=False)["tokens"]
 
+    decode_attention_at(cfg, max_len)
     launches, dbs = {}, {}
-    for batch, needed in ((1, ("_gemv_kernel", "_gemv_noacc_kernel")),
-                          (4, ("_acc_kernel",))):
+    for batch, needed in ((1, ("_gemv_kernel", "_gemv_noacc_kernel",
+                               "_decode_attention")),
+                          (4, ("_acc_kernel", "_decode_attention"))):
         counts, _, dbs[batch], _ = serve_rounds(
             bundle, params, prompts_of(batch), max_len, runner, close,
             needed)
@@ -1203,9 +1327,11 @@ def families_phase(runner, card_line: str, close):
             SEED, ShapeSpec("serve", SERVE_PROMPT, batch, "decode"),
             train=False)
 
+    decode_attention_at(cfg, max_len)
     launches, sums, tuners = {}, {}, {}
-    for batch, needed in ((1, ("_gemv_kernel", "_gemv_noacc_kernel")),
-                          (4, ("_acc_kernel",))):
+    for batch, needed in ((1, ("_gemv_kernel", "_gemv_noacc_kernel",
+                               "_decode_attention")),
+                          (4, ("_acc_kernel", "_decode_attention"))):
         counts, result, db, library = serve_rounds(
             bundle, params, prompts_of(batch)["tokens"], max_len, runner,
             close, needed)
@@ -2944,6 +3070,9 @@ def main() -> int:
           + ", ".join(f"{v} {t*1e6:.1f}" for v, t in ladder.items()))
     print("  (_fa_kernel bounds count the operations of the visible "
           "(query, key) pairs only)")
+    da_rows = [decode_attention_row(timer, *shape)
+               for shape in DECODE_ATTENTION_SHAPES]
+    rows.extend(da_rows)
 
     # ---------------------------------------------------------------- 6 ----
     phase(f"6. serving path: MobileLLM-125M unreduced through Server, "
@@ -3041,7 +3170,7 @@ def main() -> int:
                                             gemv_noacc, vmacc_row, fa_row,
                                             fa_long_row, acc3_f32,
                                             noacc3_f32, n6_row, n7_row,
-                                            *moe_rows)]}))
+                                            *da_rows, *moe_rows)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,7 +6,11 @@ Parameters are f32 ("master" precision); compute casts to the config dtype
 projections are ``@`` and its attention the chunked online softmax of
 :func:`_sdpa`, in plain PyTorch: the port's tuned CUDA kernels are reached
 through dispatch and tuning (``core/dispatch.py``), not from inside the
-model, as in the reference.
+model, as in the reference. One kernel is the exception: on the card, one
+query a row against a KV cache goes to the decode-attention kernel
+(``kernels/decode_attention``), called here outside the tuner's op
+families, because a step captured as a CUDA graph must read its position
+on the device and cannot go through a host-side dispatch.
 
 Per-layer parameters arrive here as dicts of tensors (``p["wq"]`` ...),
 one layer's slice of the stacked ``(L, ...)`` parameters of
@@ -24,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.decode_attention import kernel as decode_kernel
 
 # ----------------------------------------------------- activation sharding --
 # The reference pins the batch sharding of activations GSPMD would otherwise
@@ -816,6 +821,29 @@ def attention_decode(x, p, cfg: ArchConfig, k_cache, v_cache, pos: int,
                                  window, mrope_positions, static_window, ring)
 
 
+def _decode_kernel_applies(q, k_cache, v_cache, window: int) -> bool:
+    """Whether one query a row on a cache that is neither ring nor sliced
+    takes the decode-attention kernel (``kernels/decode_attention``): CUDA
+    tensors that are not DTensors, no gradient to keep, q and the cache of
+    one dtype the kernel takes, a head dim it takes, at most ``MAX_GROUP``
+    query heads a KV head and a window that leaves a position visible.
+    Elsewhere :func:`_sdpa` runs. Where the gate is open, the wrapper's own
+    checks (strides, alignment, the position) raise rather than change
+    path."""
+    if q.shape[1] != 1 or q.device.type != "cuda" or any(
+            _is_dtensor(y) for y in (q, k_cache, v_cache)):
+        return False
+    if torch.is_grad_enabled() and any(
+            y.requires_grad for y in (q, k_cache, v_cache)):
+        return False
+    hq, hkv = q.shape[2], k_cache.shape[2]
+    return (q.dtype == k_cache.dtype == v_cache.dtype
+            and q.dtype in decode_kernel.DTYPE_CODE
+            and q.shape[3] in decode_kernel.HEAD_DIMS
+            and hq % hkv == 0 and hq // hkv <= decode_kernel.MAX_GROUP
+            and window != 0)
+
+
 def _attention_decode(x, p, cfg: ArchConfig, k_cache, v_cache, pos,
                       window: int, mrope_positions, static_window, ring):
     b, s, _ = x.shape
@@ -836,24 +864,29 @@ def _attention_decode(x, p, cfg: ArchConfig, k_cache, v_cache, pos,
                  + torch.arange(s, device=x.device)).long()
         k_cache.index_copy_(1, slots, k.to(k_cache.dtype))
         v_cache.index_copy_(1, slots, v.to(v_cache.dtype))
-        rows = pos.expand(s)
     else:
         write_pos = min(pos % t if ring else pos, t - s)
         k_cache[:, write_pos:write_pos + s] = k.to(k_cache.dtype)
         v_cache[:, write_pos:write_pos + s] = v.to(v_cache.dtype)
-        rows = torch.full((s,), pos, dtype=torch.int32, device=x.device)
+    sliced = (DECODE_WINDOW_SLICING and static_window is not None
+              and 0 < static_window < t)
+    if not (ring or sliced) and _decode_kernel_applies(q, k_cache, v_cache,
+                                                       window):
+        out = decode_kernel.decode_attention(q, k_cache, v_cache, pos, window)
+        return out @ p["wo"].to(x.dtype), k_cache, v_cache
     k_use, v_use = k_cache, v_cache
     if ring:
         cols = ring_positions(pos, t, device=x.device)
         cols = torch.where(cols >= 0, cols, _COL_SENTINEL)
-    elif (DECODE_WINDOW_SLICING and static_window is not None
-            and 0 < static_window < t):
+    elif sliced:
         w = static_window
         start = min(max(pos - w + 1, 0), t - w)
         k_use, v_use = k_cache[:, start:start + w], v_cache[:, start:start + w]
         cols = start + torch.arange(w, dtype=torch.int32, device=x.device)
     else:
         cols = torch.arange(t, dtype=torch.int32, device=x.device)
+    rows = (pos.expand(s) if on_device else
+            torch.full((s,), pos, dtype=torch.int32, device=x.device))
     out = _sdpa(q, k_use.to(x.dtype), v_use.to(x.dtype), rows=rows,
                 cols=cols, window=window, causal=True)
     return out @ p["wo"].to(x.dtype), k_cache, v_cache
