@@ -94,17 +94,17 @@ def _cuda_matmul_variants(hw: CudaHardwareConfig,
     ``2 * ib * t^2 <= vmem_capacity``, floored to the lane grain, halved
     down to one grain. Rungs the kernel cannot launch (its register
     accumulator bounds the output tile) are dropped, so every rung is a
-    launchable block."""
-    from repro_torch.kernels.matmul import ops as matmul_ops  # lazy: no cycle
+    launchable block (the matmul family's gate)."""
+    from repro_torch import kernels  # lazy: no cycle
 
+    gate = kernels.family("matmul").gate
     lane = hw.lane_align(dtype)
     sub = hw.sublane_align(dtype)
     t = int(math.sqrt(hw.vmem_capacity / (2 * dtype_bytes(dtype))))
     tmax = max(lane, (t // lane) * lane)
     variants = [IntrinsicVariant("matmul", f"mxu_{b}", (b, b, b))
                 for b in _halving_ladder(tmax, lane)
-                if matmul_ops.supports_block_shape(b, b, b, dtype,
-                                                   hw.vmem_capacity)]
+                if gate(Workload("matmul", (b, b, b), dtype), (b, b, b), hw)]
     variants.append(IntrinsicVariant("matmul", "mxu_min", (sub, lane, lane)))
     return variants
 

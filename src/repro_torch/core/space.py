@@ -162,44 +162,24 @@ def postproc_block_alignment(workload: Workload, hw: HardwareConfig,
     return ""
 
 
+@functools.cache
+def kernel_family(op: str):
+    """The port's CUDA kernel family for ``op`` (``kernels.family``): its
+    launch gate, footprint and floor."""
+    from repro_torch import kernels  # lazy: the kernels import this module
+
+    return kernels.family(op)
+
+
 def postproc_kernel_support(workload: Workload, hw: HardwareConfig,
                             params: KernelParams) -> str:
     """On a CUDA config, the block must be one the port's kernel can launch
-    (each kernel package's ``ops.supports_block_shape``: register
-    accumulator, threads per block, shared memory, dp4a depth), so an
-    unlaunchable tile is an invalid candidate, not a crash. A no-op on
-    every other config."""
+    (the family's gate: register accumulator, threads per block, shared
+    memory, dp4a depth), so an unlaunchable tile is an invalid candidate,
+    not a crash. A no-op on every other config."""
     if not isinstance(hw, CudaHardwareConfig):
         return ""
-    ok = True
-    if params.op == "matmul":
-        from repro_torch.kernels.matmul import ops as matmul_ops  # lazy
-
-        ok = matmul_ops.supports_block_shape(*params.block, params.dtype,
-                                             hw.vmem_capacity)
-    elif params.op == "qmatmul":
-        from repro_torch.kernels.qmatmul import ops as qmatmul_ops  # lazy
-
-        ok = qmatmul_ops.supports_block_shape(*params.block,
-                                              hw.vmem_capacity)
-    elif params.op == "gemv":
-        from repro_torch.kernels.gemv import ops as gemv_ops  # lazy
-
-        ok = gemv_ops.supports_block_shape(
-            *params.block, hw.lane_align(params.dtype))
-    elif params.op == "vmacc":
-        from repro_torch.kernels.vmacc import ops as vmacc_ops  # lazy
-
-        ok = vmacc_ops.supports_block_shape(
-            *params.block, hw.sublane_align(params.dtype),
-            hw.lane_align(params.dtype))
-    elif params.op == "attention":
-        from repro_torch.kernels.flash_attention import ops as fa_ops  # lazy
-
-        ok = fa_ops.supports_block_shape(*params.block,
-                                         params.padded_dims[5],
-                                         params.dtype, hw.vmem_capacity)
-    if not ok:
+    if not kernel_family(params.op).gate(workload, params.block, hw):
         return f"block {params.block} not launchable by the CUDA kernel"
     return ""
 
@@ -919,35 +899,17 @@ def matmul_block_bytes(workload: Workload, hw: HardwareConfig, bm: int,
     """On-chip bytes of one (bm, bn, bk) matmul block.
 
     TPU configs: the x and w blocks, the output block and the f32 VMEM
-    accumulator. CUDA configs: the shared memory the kernel asks for (the
-    accumulator is in registers): ``qmatmul.ops.block_smem`` for qmatmul
-    (the loop the launch takes at the workload's shape),
-    ``matmul.ops.smem_bytes`` for matmul. Nondecreasing in each block
-    dimension except qmatmul's on CUDA, whose wgmma loop sizes its ring to
-    the card: the static analyzer takes ``matmul_block_floor``."""
+    accumulator. CUDA configs: the shared memory the kernel's launch at the
+    workload's shape asks for (the family's footprint; the accumulator is
+    in registers). Nondecreasing in each block dimension except qmatmul's
+    on CUDA, whose wgmma loop sizes its ring to the card: the static
+    analyzer takes the family's floor."""
     if isinstance(hw, CudaHardwareConfig):
-        if workload.op == "qmatmul":
-            from repro_torch.kernels.qmatmul import ops as qmatmul_ops  # lazy
-
-            return qmatmul_ops.block_smem(*workload.dims, bm, bn, bk)
-        from repro_torch.kernels.matmul import ops as matmul_ops  # lazy
-
-        return matmul_ops.smem_bytes(bm, bn, bk, workload.dtype)
+        return kernel_family(workload.op).footprint(workload, (bm, bn, bk),
+                                                    hw)
     ib = dtype_bytes(workload.dtype)
     ob = dtype_bytes(workload.out_dtype)
     return bm * bk * ib + bk * bn * ib + bm * bn * ob + bm * bn * 4
-
-
-def matmul_block_floor(workload: Workload, hw: HardwareConfig, bm: int,
-                       bn: int, bk: int) -> int:
-    """At most ``matmul_block_bytes`` of every block at least (bm, bn, bk)
-    in each dimension: the footprint itself where it is nondecreasing, and
-    ``qmatmul.ops.smem_floor`` for qmatmul on CUDA."""
-    if isinstance(hw, CudaHardwareConfig) and workload.op == "qmatmul":
-        from repro_torch.kernels.qmatmul import ops as qmatmul_ops  # lazy
-
-        return qmatmul_ops.smem_floor(bm, bn, bk)
-    return matmul_block_bytes(workload, hw, bm, bn, bk)
 
 
 def gemv_block_bytes(workload: Workload, hw: HardwareConfig, bn: int,
@@ -959,9 +921,7 @@ def gemv_block_bytes(workload: Workload, hw: HardwareConfig, bn: int,
     accumulator. CUDA configs: the shared memory the kernel asks for (its
     sums are in registers, w streams through them)."""
     if isinstance(hw, CudaHardwareConfig):
-        from repro_torch.kernels.gemv import ops as gemv_ops  # lazy
-
-        return gemv_ops.smem_bytes(bn, bk, workload.dtype)
+        return kernel_family("gemv").footprint(workload, (bn, bk), hw)
     ib = dtype_bytes(workload.dtype)
     ob = dtype_bytes(workload.out_dtype)
     return bk * ib + bk * bn * ib + bn * ob + bn * 4
@@ -976,9 +936,7 @@ def vmacc_block_bytes(workload: Workload, hw: HardwareConfig, br: int,
     and output dtypes. CUDA configs: the shared memory the kernel asks for
     (none: it works in registers)."""
     if isinstance(hw, CudaHardwareConfig):
-        from repro_torch.kernels.vmacc import ops as vmacc_ops  # lazy
-
-        return vmacc_ops.smem_bytes(br, bc, workload.dtype)
+        return kernel_family("vmacc").footprint(workload, (br, bc), hw)
     ib = dtype_bytes(workload.dtype)
     ob = dtype_bytes(workload.out_dtype)
     return 4 * br * bc * max(ib, ob)
@@ -993,9 +951,7 @@ def attention_block_bytes(workload: Workload, hw: HardwareConfig, bq: int,
     128-wide running max and sum scratch and the f32 score tile. CUDA
     configs: the shared memory the kernel asks for."""
     if isinstance(hw, CudaHardwareConfig):
-        from repro_torch.kernels.flash_attention import ops as fa_ops  # lazy
-
-        return fa_ops.smem_bytes(bq, bkv, pd, workload.dtype)
+        return kernel_family("attention").footprint(workload, (bq, bkv), hw)
     ib = dtype_bytes(workload.dtype)
     return (bq * pd * ib + 2 * bkv * pd * ib + bq * pd * 4
             + 2 * bq * 128 * 4 + bq * bkv * 4)

@@ -55,8 +55,8 @@ import threading
 from typing import Any, Callable, Mapping, Sequence
 
 from repro_torch.core import space as space_lib
-from repro_torch.core.hardware import (HardwareConfig, V5E, V5E_MXU256, V5E_VMEM32,
-                                 V5E_VMEM64)
+from repro_torch.core.hardware import (CudaHardwareConfig, HardwareConfig, V5E,
+                                 V5E_MXU256, V5E_VMEM32, V5E_VMEM64)
 from repro_torch.core.schedule import Schedule
 from repro_torch.core.space import SpaceProgram
 from repro_torch.core.workload import Workload
@@ -190,37 +190,38 @@ def _variant_vmem_floor(workload: Workload, hw: HardwareConfig,
 
     The tile-split candidate sets are finite divisor sets; the footprint is
     monotone nondecreasing in every block dimension, or bounded from below
-    by a floor that is (qmatmul on CUDA), so evaluating it at each
-    dimension's domain minimum bounds every completion from below.
+    by a floor that is (the kernel family's on CUDA), so evaluating it at
+    each dimension's domain minimum bounds every completion from below.
     Only sound for the registered ``space_for`` program shapes (matmul's
     splits depend on the variant alone, so the bound is exact where the
     footprint is nondecreasing; gemv/vmacc later splits condition on
     earlier ones, so their lower bound uses the generator's hard floor —
     bn >= 1, bc >= lane — and stays sound). The footprints are the ones
     ``space.concretize`` computes and the dynamic ``postproc_vmem_fit``
-    checks, or their floors (``space.matmul_block_floor`` for matmul and
-    qmatmul, ``space.gemv_block_bytes`` for gemv,
-    ``space.vmacc_block_bytes`` for vmacc)."""
+    checks, or their floors."""
     op = workload.op
     lane = hw.lane_align(workload.dtype)
     ctx = {"variant": variant}
     try:
         if op in ("matmul", "qmatmul"):
-            bm = min(program.candidates("bm", ctx))
-            bn = min(program.candidates("bn", ctx))
-            bk = min(program.candidates("bk", ctx))
-            return space_lib.matmul_block_floor(workload, hw, bm, bn, bk)
-        if op == "gemv":
-            bk = min(program.candidates("bk", ctx))
+            block = tuple(min(program.candidates(name, ctx))
+                          for name in ("bm", "bn", "bk"))
+            footprint = space_lib.matmul_block_bytes
+        elif op == "gemv":
             # the J=1 row form (bn = 1) is the generator's hard floor
-            return space_lib.gemv_block_bytes(workload, hw, 1, bk)
-        if op == "vmacc":
-            br = min(program.candidates("br", ctx))
-            bc = lane  # bc candidates are lane multiples (divisor domain)
-            return space_lib.vmacc_block_bytes(workload, hw, br, bc)
+            block = (1, min(program.candidates("bk", ctx)))
+            footprint = space_lib.gemv_block_bytes
+        elif op == "vmacc":
+            # bc candidates are lane multiples (divisor domain)
+            block = (min(program.candidates("br", ctx)), lane)
+            footprint = space_lib.vmacc_block_bytes
+        else:
+            return None
+        if isinstance(hw, CudaHardwareConfig):
+            return space_lib.kernel_family(op).floor(workload, block, hw)
+        return footprint(workload, hw, *block)
     except (KeyError, ValueError):
         return None
-    return None
 
 
 def _vmem_dead_variants(workload: Workload, hw: HardwareConfig,

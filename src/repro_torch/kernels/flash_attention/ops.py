@@ -6,14 +6,18 @@ shared-memory footprint and the Python mirror of its launch layout
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 import re
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch import tracing
-from repro_torch.core.space import KernelParams
+from repro_torch.core.space import KernelParams, round_up
 from repro_torch.core.workload import dtype_bytes
+from repro_torch.kernels import Family
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.matmul.ops import TORCH_DTYPES
 
 # csrc/flash_attention.cu: one warp per 16 query rows (one mma m16), a
@@ -144,3 +148,41 @@ def build(params: KernelParams, device: str = "cuda"):
             return o[:, :lq, :d].reshape(b, hq, lq, d)
 
     return f
+
+
+def sdpa(q, k, v, dtype, causal):
+    """``scaled_dot_product_attention`` with the oracle's semantics: scale
+    1/sqrt(d), grouped KV heads, and the causal mask aligned to the bottom
+    right. SDPA's ``is_causal`` aligns it to the top left, which is the same
+    only when q and kv have one length; otherwise the call adds the
+    oracle's -1e30 to the masked scores (a boolean mask would give a row
+    with no visible key zeros, where the oracle averages every v row)."""
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    lq, lkv, d = q.shape[2], k.shape[2], q.shape[3]
+    mask = None
+    if causal and lq != lkv:
+        visible = torch.ones((lq, lkv), dtype=torch.bool,
+                             device=q.device).tril(diagonal=lkv - lq)
+        mask = torch.zeros((lq, lkv), dtype=dtype,
+                           device=q.device).masked_fill(~visible, -1e30)
+    return F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=causal and lq == lkv,
+        scale=1.0 / math.sqrt(d), enable_gqa=True)
+
+
+def _padded_head_dim(workload, hw) -> int:
+    return round_up(workload.dims[5], hw.lane_align(workload.dtype))
+
+
+# The family's answers to the tuner (``kernels.family``). The head dim is
+# padded to the lane grain, as ``concretize`` pads it.
+FAMILY = Family(
+    gate=lambda wl, block, hw: supports_block_shape(
+        *block, _padded_head_dim(wl, hw), wl.dtype, hw.vmem_capacity),
+    footprint=lambda wl, block, hw: smem_bytes(
+        *block, _padded_head_dim(wl, hw), wl.dtype),
+    build=build,
+    reference=lambda wl: functools.partial(attention_ref,
+                                           causal="causal" in wl.tags),
+    baseline=lambda wl: functools.partial(sdpa, dtype=TORCH_DTYPES[wl.dtype],
+                                          causal="causal" in wl.tags))

@@ -11,6 +11,8 @@ import torch
 
 from repro_torch import tracing
 from repro_torch.core.space import KernelParams
+from repro_torch.kernels import Family
+from repro_torch.kernels.gemv.ref import gemv_ref
 from repro_torch.kernels.matmul.ops import TORCH_DTYPES, pad2
 
 # csrc/gemv.cu: a block always has THREADS threads; each issues
@@ -139,3 +141,18 @@ def build(params: KernelParams, device: str = "cuda"):
             return out[:, :n]
 
     return f
+
+
+def baseline(workload):
+    """``torch.matmul`` in the workload dtype, its result in float32 as
+    the kernels return it."""
+    dtype = TORCH_DTYPES[workload.dtype]
+    return lambda x, w: torch.matmul(x.to(dtype), w.to(dtype)).float()
+
+
+# The family's answers to the tuner (``kernels.family``).
+FAMILY = Family(
+    gate=lambda wl, block, hw: supports_block_shape(
+        *block, hw.lane_align(wl.dtype)),
+    footprint=lambda wl, block, hw: smem_bytes(*block, wl.dtype),
+    build=build, reference=lambda wl: gemv_ref, baseline=baseline)

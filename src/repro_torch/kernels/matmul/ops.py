@@ -14,6 +14,8 @@ import torch.nn.functional as F
 from repro_torch import tracing
 from repro_torch.core.space import KernelParams
 from repro_torch.core.workload import dtype_bytes
+from repro_torch.kernels import Family
+from repro_torch.kernels.matmul.ref import matmul_ref
 
 # The int8 kernels' thread layout (csrc/tile.cuh): a 4x4 register
 # micro-tile per thread and at most 1024 threads per block.
@@ -188,3 +190,62 @@ def build(params: KernelParams, device: str = "cuda"):
             return out
 
     return f
+
+
+def baseline(workload):
+    """``torch.matmul`` in the workload dtype; :func:`int_mm` for int8."""
+    dtype = TORCH_DTYPES[workload.dtype]
+    if dtype == torch.int8:
+        return int_mm
+    return lambda x, w: torch.matmul(x.to(dtype), w.to(dtype))
+
+
+# (rows, k, n, device type) -> the padded shape ``torch._int_mm`` is called
+# at for it (the shape itself when it takes it).
+_INT_MM_SHAPES: dict[tuple, tuple[int, int, int]] = {}
+
+
+def int_mm(x, w):
+    """``torch._int_mm(x, w)`` for any shape. On the card it takes only
+    more than 16 rows and k and n multiples of 8, and cuBLASLt refuses some
+    shapes within those limits too (``CUBLAS_STATUS_NOT_SUPPORTED`` for
+    MobileNetV2's 784 x 144 x 24, and for it padded to 784 x 144 x 32). The
+    call tries the shape itself, then zero-padded to multiples of 16, then
+    of 128, and remembers per shape the first one that runs."""
+    m, k = x.shape
+    n = w.shape[1]
+    key = (m, k, n, x.device.type)
+    if key in _INT_MM_SHAPES:
+        return _int_mm_at(x, w, _INT_MM_SHAPES[key])
+    tries = [(m, k, n)] + [tuple(d + (-d) % g for d in (max(m, 17), k, n))
+                           for g in (16, 128)]
+    for i, shape in enumerate(tries):
+        try:
+            out = _int_mm_at(x, w, shape)
+        except RuntimeError:
+            if i == len(tries) - 1:
+                raise
+            continue
+        _INT_MM_SHAPES[key] = shape
+        return out
+
+
+def _int_mm_at(x, w, shape):
+    """``x @ w`` in int32 through ``torch._int_mm`` at ``shape`` (pm, pk,
+    pn), zero-padding the operands up to it and slicing the result back."""
+    m, k = x.shape
+    n = w.shape[1]
+    pm, pk, pn = shape
+    if shape == (m, k, n):
+        return torch._int_mm(x, w)
+    xp = F.pad(x, (0, pk - k, 0, pm - m))
+    wp = F.pad(w, (0, pn - n, 0, pk - k))
+    return torch._int_mm(xp, wp)[:m, :n]
+
+
+# The family's answers to the tuner (``kernels.family``).
+FAMILY = Family(
+    gate=lambda wl, block, hw: supports_block_shape(*block, wl.dtype,
+                                                    hw.vmem_capacity),
+    footprint=lambda wl, block, hw: smem_bytes(*block, wl.dtype),
+    build=build, reference=lambda wl: matmul_ref, baseline=baseline)

@@ -8,12 +8,17 @@ itself, so ``build`` pads nothing: one launch per call."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
 
 import torch
 
 from repro_torch import tracing
 from repro_torch.core.space import KernelParams
+from repro_torch.kernels import Family
+from repro_torch.kernels.matmul.ops import int_mm, k_steps  # noqa: F401
+from repro_torch.kernels.qmatmul.plain import requantize
+from repro_torch.kernels.qmatmul.ref import qmatmul_ref
 
 DEFAULT_SCALE = 0.01
 
@@ -117,20 +122,8 @@ def smem_bytes(bm: int, bn: int, bk: int) -> int:
     return max(ring, bm * bn * 4)
 
 
-def block_smem(m: int, n: int, k: int, bm: int, bn: int, bk: int) -> int:
-    """Dynamic shared memory of the launch at real ``(m, n, k)`` and block
-    ``(bm, bn, bk)``, x on the 16-byte grain: the wgmma loop's
-    (``wgmma_plan(...).smem``, its ring sized to the card) where it takes
-    the call, else the mma.sync loop's (``smem_bytes``). The footprint
-    ``concretize`` charges. Not monotone in the block (the wgmma loop's
-    ring fills what w leaves): the static analyzer bounds it from below
-    with ``smem_floor``."""
-    g = wgmma_plan(m, n, k, bm, bn)
-    return smem_bytes(bm, bn, bk) if g is None else g.smem
-
-
 def smem_floor(bm: int, bn: int, bk: int) -> int:
-    """At most ``block_smem`` of every block at least ``(bm, bn, bk)`` in
+    """At most ``plan(...).smem`` of every block at least ``(bm, bn, bk)`` in
     each dim, at any shape: the least of the mma.sync loop's footprint
     (nondecreasing) and the least the wgmma loop ever asks (its fixed bytes
     at bn 32, a (32, 32) slice of w, WG_MIN_STAGES slots of WG_UNIT rows x
@@ -138,19 +131,6 @@ def smem_floor(bm: int, bn: int, bk: int) -> int:
     least_wgmma = (wgmma_fixed_bytes(FRAG_N) + FRAG_K * FRAG_N
                    + WG_MIN_STAGES * WG_UNIT * FRAG_K)
     return min(smem_bytes(bm, bn, bk), least_wgmma)
-
-
-def launch_key(m: int, n: int, k: int, bm: int, bn: int,
-               bk: int) -> tuple:
-    """What a launch at real ``(m, n, k)`` and block ``(bm, bn, bk)`` runs,
-    x on the 16-byte grain: ``("wgmma", bn)`` where it takes the wgmma
-    loop, which reads only bn of the block (its units and panels follow the
-    shape), else ``("mma", bm, bn, bk)``. Blocks with one key launch the
-    same kernel on the same layout (the schedule's order and accumulate
-    reach neither loop), so the measuring runner times each key once."""
-    if wgmma_plan(m, n, k, bm, bn) is not None:
-        return "wgmma", bn
-    return "mma", bm, bn, bk
 
 
 def supports_block_shape(bm: int, bn: int, bk: int, smem_limit: int) -> bool:
@@ -185,7 +165,13 @@ def copy_width(row_bytes: int, address: int) -> int:
 class Plan:
     """The launch-time layout ``make_plan`` in ``csrc/qmatmul.cu``
     computes, and the loop the launch takes (``wgmma``: its layout, or None
-    for the mma.sync loop, whose fields the rest are)."""
+    for the mma.sync loop, whose fields the first nine are).
+
+    ``smem``, the footprint ``concretize`` charges, is that loop's: not
+    monotone in the block (the wgmma ring fills what w leaves), so the
+    static analyzer takes ``smem_floor``. The wgmma loop reads only bn of
+    the block, and neither loop the order or accumulate: blocks with one
+    ``launch_key`` launch one kernel on one layout."""
     wm: int        # fragments per warp, down the rows
     wn: int        # fragments per warp, across the columns
     warps: int
@@ -195,6 +181,8 @@ class Plan:
     cluster: int   # blocks that split one tile's k steps
     vx: int        # copy width of x's rows
     vw: int        # copy width of w's rows
+    smem: int      # dynamic shared memory of one block
+    launch_key: tuple  # ("wgmma", bn) or ("mma", bm, bn, bk)
     wgmma: WgPlan | None = None
 
     @property
@@ -202,13 +190,15 @@ class Plan:
         return "mma" if self.wgmma is None else "wgmma"
 
 
+@functools.lru_cache(maxsize=8192)
 def plan(m: int, n: int, k: int, bm: int, bn: int, bk: int,
          x_address: int = 0, w_address: int = 0,
          max_cluster: int = MAX_CLUSTER) -> Plan:
     """The kernel's layout for real ``(m, n, k)`` at block ``(bm, bn, bk)``:
     the rules of ``csrc/qmatmul.cu``'s ``make_plan`` and ``make_wg_plan``,
     step for step (``max_cluster`` as ``qmatmul_launch_capped`` takes it;
-    it does not move the choice of loop)."""
+    it does not move the choice of loop). Memoised: the tuner asks it
+    for each trace's footprint and launch key."""
     fm, fn = bm // FRAG_M, bn // FRAG_N
     wm = 2 if fm % 2 == 0 and (fm // 2) * fn >= MIN_WARPS else 1
     wn = 2 if fn % 2 == 0 and (fm // wm) * (fn // 2) >= MIN_WARPS else 1
@@ -217,15 +207,15 @@ def plan(m: int, n: int, k: int, bm: int, bn: int, bk: int,
     while (c < max_cluster and tiles_m * tiles_n * 2 * c <= FILL_CTAS
            and steps >= 2 * c * MIN_STEPS):
         c *= 2
+    g = wgmma_plan(m, n, k, bm, bn, x_address, w_address)
+    if g is None:
+        smem, launch = smem_bytes(bm, bn, bk), ("mma", bm, bn, bk)
+    else:
+        smem, launch = g.smem, ("wgmma", bn)
     return Plan(wm=wm, wn=wn, warps=(fm // wm) * (fn // wn),
                 tiles_m=tiles_m, tiles_n=tiles_n, steps=steps, cluster=c,
                 vx=copy_width(k, x_address), vw=copy_width(n, w_address),
-                wgmma=wgmma_plan(m, n, k, bm, bn, x_address, w_address))
-
-
-def k_steps(steps: int, cluster: int, rank: int) -> range:
-    """The k steps block ``rank`` of a cluster takes (a contiguous share)."""
-    return range(rank * steps // cluster, (rank + 1) * steps // cluster)
+                smem=smem, launch_key=launch, wgmma=g)
 
 
 _MANGLED = re.compile(r"qmm_kernelILi(\d+)ELi(\d+)E")
@@ -274,3 +264,14 @@ def build(params: KernelParams, device: str = "cuda",
                                   params.block)
 
     return f
+
+
+# The family's answers to the tuner (``kernels.family``).
+FAMILY = Family(
+    gate=lambda wl, block, hw: supports_block_shape(*block, hw.vmem_capacity),
+    footprint=lambda wl, block, hw: plan(*wl.dims, *block).smem,
+    floor=lambda wl, block, hw: smem_floor(*block),
+    key=lambda params: plan(*params.dims, *params.block).launch_key,
+    build=build, reference=lambda wl: qmatmul_ref,
+    baseline=lambda wl: lambda x, w, bias: requantize(
+        int_mm(x, w), bias[None, :], DEFAULT_SCALE))

@@ -14,7 +14,9 @@ import torch
 
 from repro_torch import tracing
 from repro_torch.core.space import KernelParams
+from repro_torch.kernels import Family
 from repro_torch.kernels.matmul.ops import TORCH_DTYPES
+from repro_torch.kernels.vmacc.ref import vmacc_ref
 
 # csrc/vmacc.cu: THREADS threads a block, each issuing the loads of UNROLL
 # 16-byte vectors (or elements) before its first multiply-add; a block
@@ -100,3 +102,12 @@ def build(params: KernelParams, device: str = "cuda"):
             return vmacc_ragged(a, b, cc, params.block)
 
     return f
+
+
+# The family's answers to the tuner (``kernels.family``).
+FAMILY = Family(
+    gate=lambda wl, block, hw: supports_block_shape(
+        *block, hw.sublane_align(wl.dtype), hw.lane_align(wl.dtype)),
+    footprint=lambda wl, block, hw: smem_bytes(*block, wl.dtype),
+    build=build, reference=lambda wl: vmacc_ref,
+    baseline=lambda wl: lambda a, b, c: torch.addcmul(c, a, b))

@@ -462,7 +462,8 @@ def test_qmatmul_charged_the_loop_the_launch_takes(dims):
         assert want <= H100.vmem_capacity
         for small in blocks:
             if all(s <= d for s, d in zip(small, b)):
-                assert space.matmul_block_floor(wl, H100, *small) <= want
+                assert kernels.family("qmatmul").floor(wl, small,
+                                                       H100) <= want
 
 
 @pytest.mark.parametrize("dims,block,path,bulk", CELL_SHAPES,
@@ -472,19 +473,19 @@ def test_qmatmul_launch_key_names_one_kernel(dims, block, path, bulk):
     their bm and bk; every mma.sync block keys on its own (bm, bn, bk).
     So a cell shape's space holds as many keys as distinct launches."""
     blocks = _blocks(W.qmatmul(*dims))
-    keys = {qmm_ops.launch_key(*dims, *b) for b in blocks}
+    keys = {qmm_ops.plan(*dims, *b).launch_key for b in blocks}
     wgmma_bn = {b[1] for b in blocks
                 if qmm_ops.plan(*dims, *b).path == "wgmma"}
     mma = {b for b in blocks if qmm_ops.plan(*dims, *b).path == "mma"}
     assert keys == {("wgmma", bn) for bn in wgmma_bn} | {
         ("mma", *b) for b in mma}
-    assert qmm_ops.launch_key(*dims, *block)[0] == path
+    assert qmm_ops.plan(*dims, *block).launch_key[0] == path
     if path == "wgmma":
         for bm in (64, 128):
             for bk in (32, 64, 96, 128):
-                assert qmm_ops.launch_key(*dims, bm, block[1], bk) == \
-                    ("wgmma", block[1])
-        assert qmm_ops.launch_key(*dims, 32, block[1], 32)[0] == "mma"
+                assert qmm_ops.plan(*dims, bm, block[1], bk).launch_key \
+                    == ("wgmma", block[1])
+        assert qmm_ops.plan(*dims, 32, block[1], 32).launch_key[0] == "mma"
 
 
 def test_qmatmul_launch_key_reaches_the_runner():
@@ -604,7 +605,7 @@ def test_h100_traces_launch_and_are_charged_the_kernels_smem(wl):
         if wl.op == "qmatmul":
             assert qmm_ops.supports_block_shape(*p.block,
                                                 H100.vmem_capacity)
-            assert p.vmem_bytes == qmm_ops.block_smem(*wl.dims, *p.block)
+            assert p.vmem_bytes == qmm_ops.plan(*wl.dims, *p.block).smem
             g = qmm_ops.plan(*wl.dims, *p.block).wgmma
             assert p.vmem_bytes == (qmm_ops.smem_bytes(*p.block) if g is None
                                     else g.smem)
