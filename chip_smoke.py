@@ -158,7 +158,10 @@ Phases (any failure exits nonzero and prints no result line):
      4 x 8192 x 16 x 128 bf16 cache (position 4104) and at MobileLLM's 9/3
      heads of 64 (batch 4, 2048 slots, position 1500), against its plain
      version first, SDPA in bf16 over the visible positions its library
-     call. A row's bound counts
+     call; ``_moe_decode`` at the decode cell's shape (one Qwen1.5-MoE-A2.7B
+     layer in bf16, 4 rows and the experts they choose), against its plain
+     version first, the grouped path it replaces its library call. A row's
+     bound counts
      the bytes and operations of the function's real, unpadded operands
      and output;
   6. the serving path: MobileLLM-125M unreduced (30 layers, d_model 576,
@@ -339,6 +342,8 @@ REPLACES = {
     "_fa_kernel": "src/repro/kernels/flash_attention/kernel.py:25",
     "_decode_attention": "none: the JAX package's decode attention is "
                          "XLA's einsums (src/repro/models/layers.py _sdpa)",
+    "_moe_decode": "none: the JAX package's MoE layer is XLA's einsums "
+                   "(src/repro/models/moe.py)",
 }
 SOURCE = {
     "_acc_kernel": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -349,6 +354,7 @@ SOURCE = {
     "_vmacc_kernel": "src/repro_torch/kernels/csrc/vmacc.cu",
     "_fa_kernel": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "_decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
+    "_moe_decode": "src/repro_torch/kernels/csrc/moe_decode.cu",
 }
 
 
@@ -506,6 +512,77 @@ def decode_attention_row(timer, label, b, t, hq, hkv, d, pos) -> dict:
           f"{r['bound_ms']*1e3:.3f} us (bytes), "
           f"{100 * r['bound_ms'] / r['ms']:.1f} % of it")
     del q, k, v, qs, ks, vs
+    torch.cuda.empty_cache()
+    return r
+
+
+def moe_decode_row(timer) -> dict:
+    """Phase 5's row of the decode-step MoE kernel at the decode cell's
+    shape: one Qwen1.5-MoE-A2.7B layer at its published widths in bf16
+    (weights normal of spread 0.02, the cell's), 4 rows, the routing they
+    get. The kernel against its plain version (beyond 1e-3 of the output's
+    norm it fails), then the kernel, the plain version and the grouped path
+    it replaces on the card (``torch._grouped_mm`` and the shared expert's
+    three products, the library's yardstick, which the port no longer calls
+    for a decode step), each timed by ``timer``, and the bound: the chosen
+    experts', the shared expert's, the router's and the gate's weights read
+    once, the rows in and out, at the HBM rate."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_decode import kernel as mk
+    from repro_torch.kernels.moe_decode import plain
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+
+    cfg = get_config("qwen1_5_moe_a2_7b")
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    fs = cfg.n_shared_experts * f
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def normal(*shape, std=0.02):
+        return (torch.randn(shape, generator=g, device="cuda") * std
+                ).to(torch.bfloat16)
+    lp = {"router": normal(d, e),
+          "experts": {"w_gate": normal(e, d, f), "w_up": normal(e, d, f),
+                      "w_down": normal(e, f, d)},
+          "shared": {"w_gate": normal(d, fs), "w_up": normal(d, fs),
+                     "w_down": normal(fs, d)},
+          "shared_gate": normal(d, 1)}
+    x = normal(4, d, std=1.0)
+    args = (x, lp["router"], lp["experts"], lp["shared"], lp["shared_gate"],
+            cfg.top_k, cfg.norm_topk_prob)
+    got, routing = mk.moe_decode(*args)
+    want, _ = plain.moe_decode_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).norm() / want.float().norm())
+    if err > 1e-3:
+        raise RuntimeError(f"_moe_decode: relative error {err:.3g} against "
+                           f"its plain version")
+    chosen = int((routing.counts > 0).sum())
+    nbytes = 2 * (chosen * 3 * d * f + 3 * d * fs + d * e + d + 2 * 4 * d)
+    x3 = x.reshape(4, 1, d)
+
+    def grouped(x3):
+        return moe._dropless_experts(x3, lp, cfg) + torch.sigmoid(
+            x3 @ lp["shared_gate"]) * L.mlp(x3, lp["shared"], "silu")
+
+    r = {"name": "_moe_decode", "route": "cuda",
+         "source": SOURCE["_moe_decode"], "replaces": REPLACES["_moe_decode"],
+         "launches": 0, "max_abs_err": float((got.float()
+                                             - want.float()).abs().max()),
+         "ms": timer(mk.moe_decode, args) * 1e3,
+         "plain_ms": timer(plain.moe_decode_plain, args) * 1e3,
+         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "library_ms": timer(grouped, (x3,)) * 1e3,
+         "workload": f"Qwen1.5-MoE decode cell batch 4, one layer, "
+                     f"{chosen} experts chosen", "block": [chosen]}
+    print(f"  _moe_decode {r['workload']}: kernel {r['ms']*1e3:.2f} us, "
+          f"plain {r['plain_ms']*1e3:.2f} us, grouped path "
+          f"{r['library_ms']*1e3:.2f} us, bound {r['bound_ms']*1e3:.3f} us "
+          f"(bytes), {100 * r['bound_ms'] / r['ms']:.1f} % of it; relative "
+          f"error {err:.2e}")
+    del lp, args, x, x3
     torch.cuda.empty_cache()
     return r
 
@@ -3073,6 +3150,8 @@ def main() -> int:
     da_rows = [decode_attention_row(timer, *shape)
                for shape in DECODE_ATTENTION_SHAPES]
     rows.extend(da_rows)
+    da_rows.append(moe_decode_row(timer))
+    rows.append(da_rows[-1])
 
     # ---------------------------------------------------------------- 6 ----
     phase(f"6. serving path: MobileLLM-125M unreduced through Server, "

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.moe_decode import kernel as decode_kernel
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -231,10 +232,61 @@ def _dropless_experts(x, lp, cfg: ArchConfig):
     return y.to(x.dtype)
 
 
+def _decode_kernel_applies(x, lp, cfg: ArchConfig) -> bool:
+    """Whether the layer of rows ``x`` (B, S, D) takes the decode-step MoE
+    kernel (``kernels/moe_decode``): a dropless config, CUDA tensors that
+    are not DTensors, no gradient to keep, at most ``MAX_ROWS`` rows (a
+    decode step's, not a prefill's), x and every weight in bf16, and widths,
+    experts and top-k the kernel takes. Elsewhere the grouped path runs
+    (:func:`_dropless_experts` and the shared expert's ``L.mlp``) or the
+    capacity path. Where the gate is open, the wrapper's own checks
+    (strides, alignment) raise rather than change path."""
+    b, s, d = x.shape
+    if not cfg.moe_dropless or x.device.type != "cuda" \
+            or b * s > decode_kernel.MAX_ROWS:
+        return False
+    weights = [x, lp["router"], *lp["experts"].values()]
+    if cfg.n_shared_experts:
+        weights += lp["shared"].values()
+    if cfg.shared_expert_gate:
+        weights.append(lp["shared_gate"])
+    if any(L._is_dtensor(w) for w in weights):
+        return False
+    if torch.is_grad_enabled() and any(w.requires_grad for w in weights):
+        return False
+    return (all(w.dtype == torch.bfloat16 for w in weights)
+            and decode_kernel.takes(d, lp["experts"]["w_gate"].shape[-1],
+                                    lp["router"].shape[-1], cfg.top_k))
+
+
+def _decode_kernel_ffn(x, lp, cfg: ArchConfig):
+    """The layer through the decode-step MoE kernel, in span ``moe.ffn``.
+    The experts read are counted from the kernel's per-expert row counts, a
+    count that waits for the card, so only while spans are recorded, and
+    after the span: the copy that brings them to the host is no work of the
+    layer's."""
+    b, s, d = x.shape
+    with tracing.span("moe.ffn"):
+        tracing.count("moe.assignments", b * s * cfg.top_k)
+        y, routing = decode_kernel.moe_decode(
+            x.reshape(b * s, d), lp["router"], lp["experts"],
+            lp["shared"] if cfg.n_shared_experts else None,
+            lp["shared_gate"] if cfg.shared_expert_gate else None,
+            cfg.top_k, cfg.norm_topk_prob)
+    if tracing.recording():
+        tracing.count("moe.experts_read",
+                      int((routing.counts.cpu() > 0).sum()))
+    tracing.count("moe.dropped", 0)
+    return y.reshape(b, s, d)
+
+
 def moe_ffn(x, lp, cfg: ArchConfig):
     """x (B, S, D) -> (B, S, D): top-k routed experts + shared experts, the
     shared ones scaled by ``sigmoid(x @ shared_gate)`` where the config
-    gates them (``shared_expert_gate``)."""
+    gates them (``shared_expert_gate``). A decode step's few rows on a card
+    take one kernel for all of it (:func:`_decode_kernel_applies`)."""
+    if _decode_kernel_applies(x, lp, cfg):
+        return _decode_kernel_ffn(x, lp, cfg)
     b, s, _ = x.shape
     with tracing.span("moe.ffn"):
         tracing.count("moe.assignments", b * s * cfg.top_k)

@@ -1,9 +1,11 @@
 """On a card: the dropless expert layer of Qwen1.5-MoE-A2.7B at its
-published widths in bf16 (``torch._grouped_mm`` on the card's grouped
-kernels) never reads an expert that no token chose, and at a prefill's
-size equals each expert run on its own rows in float32 within bf16's
-rounding; and the ``Server``'s decode step captured as a CUDA graph gives
-the eager step's tokens and logits, across a restart of the position.
+published widths in bf16 on its grouped path (``torch._grouped_mm`` on the
+card's grouped kernels, which a decode step's few rows leave for
+``kernels/moe_decode``) never reads an expert that no token chose, and at a
+prefill's size equals each expert run on its own rows in float32 within
+bf16's rounding; and the ``Server``'s decode step captured as a CUDA graph,
+its MoE layers on ``kernels/moe_decode``, gives the eager step's tokens and
+logits, across a restart of the position.
 ``python -m pytest -q -m gpu tests/test_torch_qwen1_5_moe_cuda.py``;
 skips without a card."""
 
@@ -12,6 +14,7 @@ import dataclasses
 import pytest
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs import get_config
 from repro_torch.models import moe
 from repro_torch.models.model_zoo import build
@@ -47,8 +50,15 @@ def rows(n, seed):
                        device="cuda").to(torch.bfloat16)
 
 
+@pytest.fixture
+def grouped(monkeypatch):
+    """The grouped path, whatever the rows: the decode kernel's gate
+    shut."""
+    monkeypatch.setattr(moe, "_decode_kernel_applies", lambda *a: False)
+
+
 @torch.no_grad()
-def test_unchosen_experts_are_never_read(layer):
+def test_unchosen_experts_are_never_read(layer, grouped):
     x = rows(1, 3)
     sel, _ = moe.top_k((x @ layer["router"]).float(), CFG)
     chosen = sorted(set(sel.reshape(-1).tolist()))
@@ -63,7 +73,7 @@ def test_unchosen_experts_are_never_read(layer):
 
 
 @torch.no_grad()
-def test_grouped_layer_equals_each_expert_alone(layer):
+def test_grouped_layer_equals_each_expert_alone(layer, grouped):
     torch.backends.cuda.matmul.allow_tf32 = False
     x = rows(512, 5)
     got = moe.moe_ffn(x, layer, CFG).float()
@@ -104,6 +114,7 @@ def test_captured_step_equals_the_eager_step():
                         generator=torch.Generator(device="cuda")
                         .manual_seed(3))
     runs = []
+    launches = tracing.counters().get("launch._moe_decode", 0)
     for graph in (False, True):
         server = Server(bundle, params, max_len=20, cuda_graph=graph)
         state = server.prefill(ids)
@@ -117,3 +128,6 @@ def test_captured_step_equals_the_eager_step():
     for (want_tok, want), (got_tok, got) in zip(*runs):
         assert (got_tok == want_tok).all()
         assert torch.equal(got, want)
+    # the eager steps and the capture ran the decode kernel, a layer each
+    assert tracing.counters().get("launch._moe_decode", 0) - launches \
+        >= 13 * cfg.n_layers
