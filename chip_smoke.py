@@ -160,7 +160,12 @@ Phases (any failure exits nonzero and prints no result line):
      version first, SDPA in bf16 over the visible positions its library
      call; ``_moe_decode`` at the decode cell's shape (one Qwen1.5-MoE-A2.7B
      layer in bf16, 4 rows and the experts they choose), against its plain
-     version first, the grouped path it replaces its library call. A row's
+     version first, the grouped path it replaces its library call;
+     ``_mla_decode`` at the Moonlight cell's shape (16 rows, an 8192-slot
+     latent cache of 576 in bf16, 16 heads, position 6143), against its
+     plain version first, SDPA in bf16 over the visible positions (each
+     head's 576-wide query against the rows as keys, their 512 first dims
+     as values) its library call. A row's
      bound counts
      the bytes and operations of the function's real, unpadded operands
      and output;
@@ -344,6 +349,7 @@ REPLACES = {
                          "XLA's einsums (src/repro/models/layers.py _sdpa)",
     "_moe_decode": "none: the JAX package's MoE layer is XLA's einsums "
                    "(src/repro/models/moe.py)",
+    "_mla_decode": "none: the JAX package has no latent attention",
 }
 SOURCE = {
     "_acc_kernel": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -355,6 +361,7 @@ SOURCE = {
     "_fa_kernel": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "_decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
     "_moe_decode": "src/repro_torch/kernels/csrc/moe_decode.cu",
+    "_mla_decode": "src/repro_torch/kernels/csrc/mla_decode.cu",
 }
 
 
@@ -583,6 +590,67 @@ def moe_decode_row(timer) -> dict:
           f"(bytes), {100 * r['bound_ms'] / r['ms']:.1f} % of it; relative "
           f"error {err:.2e}")
     del lp, args, x, x3
+    torch.cuda.empty_cache()
+    return r
+
+
+def mla_decode_row(timer) -> dict:
+    """Phase 5's row of the latent decode-attention kernel at the Moonlight
+    cell's shape: 16 rows, an 8192-slot bf16 latent cache of 576, 16 heads,
+    position 6143 (the cell's mid-window). The kernel against its plain
+    version (beyond 4e-3 of the output's norm it fails), then the kernel,
+    its plain version and SDPA in bf16 over the visible positions (the
+    heads' queries against the rows as shared keys, their first 512 dims as
+    values: the library's yardstick, which the port never calls), each
+    timed by ``timer``, and the bound: the visible rows, q and the output at
+    the HBM rate."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.mla_decode import kernel as mk
+    from repro_torch.kernels.mla_decode import plain
+
+    b, t, pos = 16, 8192, 6143
+    scale = 192 ** -0.5
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q = torch.randn((b, 1, mk.HEADS, mk.WIDTH), generator=g,
+                    device="cuda").bfloat16()
+    cache = torch.randn((b, t, mk.WIDTH), generator=g,
+                        device="cuda").bfloat16()
+    splits = mk.splits_for(b, t, mk._sm_count(0))
+    got = mk.mla_decode(q, cache, pos, scale)
+    want = plain.mla_decode_plain(q, cache, pos, scale, splits)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).norm() / want.float().norm())
+    if err > 4e-3:
+        raise RuntimeError(f"_mla_decode: relative error {err:.3g} against "
+                           f"its plain version")
+    n = pos + 1
+    qs = q[:, 0, :, None]                           # (b, heads, 1, 576)
+    ks = cache[:, None, :n]                         # (b, 1, n, 576)
+    vs = cache[:, None, :n, :mk.LAT]
+    nbytes = 2 * (b * n * mk.WIDTH + b * mk.HEADS * (mk.WIDTH + mk.LAT))
+    bound = max(nbytes / HBM_BYTES_PER_S, 2.0 * b * mk.HEADS * n
+                * (mk.WIDTH + mk.LAT) / PEAK_OPS["bfloat16"]) * 1e3
+    r = {"name": "_mla_decode", "route": "cuda",
+         "source": SOURCE["_mla_decode"], "replaces": REPLACES["_mla_decode"],
+         "launches": 0, "max_abs_err": float((got.float()
+                                             - want.float()).abs().max()),
+         "ms": timer(mk.mla_decode, (q, cache, pos, scale)) * 1e3,
+         "plain_ms": timer(plain.mla_decode_plain,
+                           (q, cache, pos, scale, splits)) * 1e3,
+         "bound_ms": bound, "bound_by": "bytes",
+         "library_ms": timer(lambda a, k, v: F.scaled_dot_product_attention(
+             a, k, v, scale=scale, enable_gqa=True), (qs, ks, vs)) * 1e3,
+         "workload": f"Moonlight decode cell batch 16, pos {pos}",
+         "block": [splits]}
+    print(f"  _mla_decode {r['workload']} ({splits} splits): kernel "
+          f"{r['ms']*1e3:.2f} us, plain {r['plain_ms']*1e3:.2f} us, SDPA "
+          f"bf16 {r['library_ms']*1e3:.2f} us, bound "
+          f"{r['bound_ms']*1e3:.3f} us (bytes), "
+          f"{100 * r['bound_ms'] / r['ms']:.1f} % of it; relative error "
+          f"{err:.2e}")
+    del q, cache, qs, ks, vs
     torch.cuda.empty_cache()
     return r
 
@@ -3151,6 +3219,8 @@ def main() -> int:
                for shape in DECODE_ATTENTION_SHAPES]
     rows.extend(da_rows)
     da_rows.append(moe_decode_row(timer))
+    rows.append(da_rows[-1])
+    da_rows.append(mla_decode_row(timer))
     rows.append(da_rows[-1])
 
     # ---------------------------------------------------------------- 6 ----

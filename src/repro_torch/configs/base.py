@@ -62,6 +62,17 @@ class ArchConfig:
     shared_expert_gate = False  # shared expert scaled by sigmoid(x @ w)
     norm_topk_prob = True       # softmax over the top-k logits alone
     moe_dropless = False        # every assignment reaches its expert
+    # latent attention (MLA): 0 for none, the plain q/k/v projections
+    kv_lora_rank = 0            # the compressed KV row's width
+    q_lora_rank = 0             # a compressed query: 0 for none (the only)
+    qk_nope_head_dim = 0        # a head's q/k dims without RoPE
+    qk_rope_head_dim = 0        # its q/k dims with RoPE, one k_pe a token
+    v_head_dim = 0              # a head's value width
+    first_k_dense_replace = 0   # leading layers with a dense MLP, not MoE
+    dense_d_ff = 0              # those layers' SwiGLU width
+    scoring_func = "softmax"    # router scores: softmax | sigmoid
+    topk_method = "greedy"      # greedy | noaux_tc (choose on score + bias)
+    routed_scaling_factor = 1.0  # the routed experts' weights scaled by
 
     # ---------------------------------------------------------------- sizes --
     @property
@@ -78,6 +89,29 @@ class ArchConfig:
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
 
+    @property
+    def mla(self) -> bool:
+        """Latent attention (DeepSeek-V2/V3's MLA) in place of q/k/v."""
+        return self.kv_lora_rank > 0
+
+    def _attn_params(self) -> int:
+        d = self.d_model
+        if self.mla:
+            h, r = self.n_heads, self.kv_lora_rank
+            qk = self.qk_nope_head_dim + self.qk_rope_head_dim
+            return (d * h * qk + d * (r + self.qk_rope_head_dim) + r
+                    + r * h * (self.qk_nope_head_dim + self.v_head_dim)
+                    + h * self.v_head_dim * d)
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        if self.qkv_bias:
+            attn += self.q_dim + 2 * self.kv_dim
+        return attn
+
+    def _moe_layers(self) -> tuple[int, int]:
+        """(dense, MoE) layers of a MoE config."""
+        return self.first_k_dense_replace, \
+            self.n_layers - self.first_k_dense_replace
+
     def window_for_layer(self, i: int) -> int:
         if not self.window_pattern:
             return -1
@@ -89,17 +123,19 @@ class ArchConfig:
         p = v * d  # embedding
         if not self.tie_embeddings:
             p += v * d
-        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        attn = self._attn_params()
         mlp = 3 * d * f if self.act == "silu" else 2 * d * f
-        if self.qkv_bias:
-            attn += self.q_dim + 2 * self.kv_dim
         if self.family == "moe":
             fe = self.moe_d_ff
             moe = (self.n_experts * 3 * d * fe
                    + self.n_shared_experts * 3 * d * fe + d * self.n_experts)
             if self.shared_expert_gate:
                 moe += d
-            p += self.n_layers * (attn + moe + 2 * d)
+            if self.topk_method == "noaux_tc":
+                moe += self.n_experts
+            dense, sparse = self._moe_layers()
+            p += sparse * (attn + moe + 2 * d) \
+                + dense * (attn + 3 * d * self.dense_d_ff + 2 * d)
         elif self.family == "ssm":
             d_in = self.ssm_expand * d
             n = self.ssm_state
@@ -131,9 +167,13 @@ class ArchConfig:
             return self.num_params()
         d, fe = self.d_model, self.moe_d_ff
         attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        if self.mla:
+            attn = self._attn_params()
         active_moe = ((self.top_k + self.n_shared_experts) * 3 * d * fe
                       + d * self.n_experts)
-        p = self.vocab_size * d + self.n_layers * (attn + active_moe + 2 * d)
+        dense, sparse = self._moe_layers()
+        p = self.vocab_size * d + sparse * (attn + active_moe + 2 * d) \
+            + dense * (attn + 3 * d * self.dense_d_ff + 2 * d)
         return p
 
     def block_kind(self, i: int) -> str:
@@ -193,6 +233,31 @@ class PublishedArchConfig(ArchConfig):
     shared_expert_gate: bool = False
     norm_topk_prob: bool = True
     moe_dropless: bool = False
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    first_k_dense_replace: int = 0
+    dense_d_ff: int = 0
+    scoring_func: str = "softmax"
+    topk_method: str = "greedy"
+    routed_scaling_factor: float = 1.0
+
+    def reduced(self) -> "PublishedArchConfig":
+        """:meth:`ArchConfig.reduced`; a latent-attention config keeps its
+        structure at the small size: a dense leading layer before two MoE
+        layers, a latent row of 32 + 8 and heads of 16 + 8 (q/k) and 16
+        (v), its shared experts and its routing."""
+        cfg = super().reduced()
+        if not self.mla:
+            return cfg
+        return dataclasses.replace(
+            cfg, n_layers=min(self.n_layers, self.first_k_dense_replace + 2),
+            n_kv_heads=cfg.n_heads, n_experts=8, top_k=min(self.top_k, 3),
+            n_shared_experts=self.n_shared_experts, kv_lora_rank=32,
+            qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+            dense_d_ff=128, d_ff=self.n_shared_experts * 32)
 
 
 @dataclasses.dataclass(frozen=True)

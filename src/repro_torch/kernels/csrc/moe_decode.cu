@@ -14,6 +14,12 @@
 //   top-k (a tie goes to the lower index), its weights the softmax's own or,
 //   with norm_topk, the softmax of the k chosen logits; the shared expert's
 //   gate sigmoid(x . w_s) of the bf16-rounded dot, in f32;
+// - or, in the sigmoid mode (DeepSeek-V3's routing, Moonlight-16B-A3B's):
+//   the logits in f32, unrounded, as the published gate computes them in
+//   f32; each expert's score sigmoid(logit); the stable top-k of score +
+//   bias (the correction bias, where one is given); the weights the chosen
+//   experts' unbiased scores, with norm_topk divided by their sum + 1e-20,
+//   times the routed scaling factor;
 // - each chosen expert's gate and up products in f32, silu(g) * u kept in
 //   f32, the down product in f32; the shared expert the same, cut into
 //   P parts of F columns (its width is P * F);
@@ -90,6 +96,7 @@ struct Params {
   const bf16* x;       // (N, D)
   const bf16* router;  // (D, E)
   const bf16* score;   // (D): the shared expert's gate; null: weight 1
+  const bf16* bias;    // (E): the sigmoid mode's correction bias, or null
   const bf16* w_gate;  // (E, D, F)
   const bf16* w_up;    // (E, D, F)
   const bf16* w_down;  // (E, F, D)
@@ -106,7 +113,8 @@ struct Params {
   // shared parts' rows, N a part
   float* h;            // (N * K + P * N, F)
   float* out;          // (N * K + P * N, D)
-  int N, D, F, E, K, P, norm_topk;
+  int N, D, F, E, K, P, norm_topk, sigmoid;
+  float scale;         // the sigmoid mode's routed scaling factor
 };
 
 // The rows a block computes: activation row and destination row of each.
@@ -324,19 +332,35 @@ __device__ void shared_part(const Params& p, int part, Work& wk, bool by_work) {
   __syncthreads();
 }
 
-// Warp 0: the softmax and the stable top-k of row r's logits lg[0..E).
+__device__ inline float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+
+// Warp 0: the stable top-k of row r's logits lg[0..E): chosen on the logits
+// and weighted by their softmax, or, in the sigmoid mode, chosen on score +
+// bias and weighted by the scores (e0, e1 over a sum of 1).
 __device__ void top_k(const Params& p, int r, const float* lg) {
   const int lane = threadIdx.x, E = p.E;
-  const float v0 = lane < E ? lg[lane] : -INFINITY;
-  const float v1 = lane + 32 < E ? lg[lane + 32] : -INFINITY;
-  float mx = fmaxf(v0, v1);
+  float v0, v1, e0, e1, sum = 1.f;
+  if (p.sigmoid) {
+    e0 = lane < E ? sigmoid(lg[lane]) : 0.f;
+    e1 = lane + 32 < E ? sigmoid(lg[lane + 32]) : 0.f;
+    const float b0 = p.bias && lane < E ? __bfloat162float(p.bias[lane]) : 0.f;
+    const float b1 =
+        p.bias && lane + 32 < E ? __bfloat162float(p.bias[lane + 32]) : 0.f;
+    v0 = lane < E ? e0 + b0 : -INFINITY;
+    v1 = lane + 32 < E ? e1 + b1 : -INFINITY;
+  } else {
+    v0 = lane < E ? lg[lane] : -INFINITY;
+    v1 = lane + 32 < E ? lg[lane + 32] : -INFINITY;
+    float mx = fmaxf(v0, v1);
 #pragma unroll
-  for (int o = 16; o > 0; o /= 2) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
-  const float e0 = lane < E ? expf(v0 - mx) : 0.f;
-  const float e1 = lane + 32 < E ? expf(v1 - mx) : 0.f;
-  float sum = e0 + e1;
+    for (int o = 16; o > 0; o /= 2)
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+    e0 = lane < E ? expf(v0 - mx) : 0.f;
+    e1 = lane + 32 < E ? expf(v1 - mx) : 0.f;
+    sum = e0 + e1;
 #pragma unroll
-  for (int o = 16; o > 0; o /= 2) sum += __shfl_xor_sync(FULL, sum, o);
+    for (int o = 16; o > 0; o /= 2) sum += __shfl_xor_sync(FULL, sum, o);
+  }
   bool free0 = lane < E, free1 = lane + 32 < E;
   float top[MAX_TOPK], prob[MAX_TOPK];
   int pick[MAX_TOPK];
@@ -368,6 +392,24 @@ __device__ void top_k(const Params& p, int r, const float* lg) {
   }
   if (lane != 0) return;
   float norm = 0.f;
+  if (p.sigmoid) {
+    if (p.norm_topk) {
+#pragma unroll
+      for (int j = 0; j < MAX_TOPK; ++j) {
+        if (j >= p.K) break;
+        norm += prob[j];
+      }
+      norm += 1e-20f;
+    }
+#pragma unroll
+    for (int j = 0; j < MAX_TOPK; ++j) {
+      if (j >= p.K) break;
+      p.sel[r * p.K + j] = pick[j];
+      p.gates[r * p.K + j] =
+          (p.norm_topk ? prob[j] / norm : prob[j]) * p.scale;
+    }
+    return;
+  }
   if (p.norm_topk) {
 #pragma unroll
     for (int j = 0; j < MAX_TOPK; ++j) {
@@ -454,7 +496,7 @@ __device__ void route(const Params& p, int r, float* smem) {
       const int flat = q * E + t;
       for (int gg = 0; gg < G; ++gg) s += part[flat * G + gg];
     }
-    lg[t] = round_bf16(s);
+    lg[t] = p.sigmoid ? s : round_bf16(s);
     p.logits[r * E + t] = lg[t];
   }
   if (t == 0) p.sg[r] = p.score ? 1.f / (1.f + expf(-round_bf16(sd))) : 1.f;
@@ -557,16 +599,20 @@ __global__ void __launch_bounds__(THREADS) moe_combine_kernel(const Params p) {
 }  // namespace
 
 // All bf16, contiguous, starting on 16 bytes: x (N, D); router (D, E);
-// score (D) or null; w_gate, w_up (E, D, F); w_down (E, F, D); s_gate, s_up
-// (D, P * F) and s_down (P * F, D), null where P == 0; y (N, D). Scratch,
+// score (D) or null; bias (E) or null (read in the sigmoid mode only);
+// w_gate, w_up (E, D, F); w_down (E, F, D); s_gate, s_up (D, P * F) and
+// s_down (P * F, D), null where P == 0; y (N, D). Scratch,
 // f32: logits (N, E), gates (N, K), sg (N), h (N * K + P * N, F), out (N * K
-// + P * N, D); int32: sel (N, K), counts (E). Returns a cudaError_t.
+// + P * N, D); int32: sel (N, K), counts (E). sigmoid: 0 the softmax
+// routing, 1 the sigmoid one, whose weights are scaled by `scale`. Returns a
+// cudaError_t.
 extern "C" int moe_decode_launch(
-    const void* x, const void* router, const void* score, const void* w_gate,
-    const void* w_up, const void* w_down, const void* s_gate,
-    const void* s_up, const void* s_down, void* y, void* logits, void* gates,
-    void* sg, void* sel, void* counts, void* h, void* out, int N, int D,
-    int F, int E, int K, int P, int norm_topk, void* stream) {
+    const void* x, const void* router, const void* score, const void* bias,
+    const void* w_gate, const void* w_up, const void* w_down,
+    const void* s_gate, const void* s_up, const void* s_down, void* y,
+    void* logits, void* gates, void* sg, void* sel, void* counts, void* h,
+    void* out, int N, int D, int F, int E, int K, int P, int norm_topk,
+    int sigmoid, float scale, void* stream) {
   if (N < 1 || N > MAX_ROWS || E < 1 || E > MAX_EXPERTS || K < 1 ||
       K > MAX_TOPK || K > E || D < VEC || D % VEC || D > MAX_WIDTH ||
       F < VEC || F % VEC || P < 0 || (P > 0 && !(s_gate && s_up && s_down)))
@@ -575,6 +621,7 @@ extern "C" int moe_decode_launch(
   p.x = static_cast<const bf16*>(x);
   p.router = static_cast<const bf16*>(router);
   p.score = static_cast<const bf16*>(score);
+  p.bias = static_cast<const bf16*>(bias);
   p.w_gate = static_cast<const bf16*>(w_gate);
   p.w_up = static_cast<const bf16*>(w_up);
   p.w_down = static_cast<const bf16*>(w_down);
@@ -596,6 +643,8 @@ extern "C" int moe_decode_launch(
   p.K = K;
   p.P = P;
   p.norm_topk = norm_topk;
+  p.sigmoid = sigmoid;
+  p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ft = (F + TILE - 1) / TILE;
   const int dt = (D + TILE - 1) / TILE;

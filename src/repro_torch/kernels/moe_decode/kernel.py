@@ -35,7 +35,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("moe_decode")
     if lib.moe_decode_launch.argtypes is None:
         i, p = ctypes.c_int, ctypes.c_void_p
-        lib.moe_decode_launch.argtypes = [p] * 17 + [i] * 7 + [p]
+        lib.moe_decode_launch.argtypes = [p] * 18 + [i] * 8 \
+            + [ctypes.c_float, p]
         lib.moe_decode_launch.restype = ctypes.c_int
     return lib
 
@@ -50,14 +51,14 @@ def takes(d: int, f: int, n_experts: int, top_k: int) -> bool:
 
 
 def check_operands(x, router, experts: dict, shared: dict | None,
-                   shared_gate, top_k: int) -> None:
+                   shared_gate, top_k: int, bias=None) -> None:
     """Raise unless ``x (N, D)``, ``router (D, E)``, the experts' w_gate,
     w_up ``(E, D, F)`` and w_down ``(E, F, D)``, the shared expert's w_gate,
-    w_up ``(D, P * F)`` and w_down ``(P * F, D)`` (or None) and its gate
-    ``(D, 1)`` (or None) are contiguous bf16 tensors starting on 16 bytes on
-    one CUDA device, with ``1 <= N <= MAX_ROWS`` and widths :func:`takes`
-    takes. The device is checked last, so each other refusal shows on CPU
-    tensors too."""
+    w_up ``(D, P * F)`` and w_down ``(P * F, D)`` (or None), its gate ``(D,
+    1)`` (or None) and the correction bias ``(E,)`` (or None) are contiguous
+    bf16 tensors starting on 16 bytes on one CUDA device, with ``1 <= N <=
+    MAX_ROWS`` and widths :func:`takes` takes. The device is checked last,
+    so each other refusal shows on CPU tensors too."""
     if x.dim() != 2 or router.dim() != 2 or router.shape[0] != x.shape[1]:
         raise ValueError(f"bad shapes x {tuple(x.shape)}, router "
                          f"{tuple(router.shape)}")
@@ -90,6 +91,11 @@ def check_operands(x, router, experts: dict, shared: dict | None,
             raise ValueError(f"bad shared expert gate shape "
                              f"{tuple(shared_gate.shape)}")
         tensors.append(shared_gate)
+    if bias is not None:
+        if bias.shape != (e,):
+            raise ValueError(f"bad correction bias shape {tuple(bias.shape)}"
+                             f" for {e} experts")
+        tensors.append(bias)
     if any(t.dtype != torch.bfloat16 for t in tensors):
         raise ValueError(f"unsupported dtypes "
                          f"{sorted({str(t.dtype) for t in tensors})}: bf16")
@@ -126,36 +132,54 @@ def _scratch(sizes: list[int], dtype, device) -> list[torch.Tensor]:
 
 def moe_decode(x: torch.Tensor, router: torch.Tensor, experts: dict,
                shared: dict | None, shared_gate, top_k: int,
-               norm_topk_prob: bool) -> tuple[torch.Tensor, Routing]:
+               norm_topk_prob: bool, *, scoring: str = "softmax", bias=None,
+               scale: float = 1.0, sel=None) -> tuple[torch.Tensor, Routing]:
     """The dropless MoE layer of rows ``x (N, D)``: top-``top_k`` routed
     experts plus the shared expert scaled by ``sigmoid(x @ shared_gate)``
-    (operands as :func:`check_operands` says). Returns ``(y (N, D) bf16,
-    Routing)``, the routing views of the call's scratch; the kernel's
-    other scratch holds each assignment's and shared part's row of
-    ``silu(g) * u`` (h) and of its down product (out), f32."""
-    check_operands(x, router, experts, shared, shared_gate, top_k)
+    (operands as :func:`check_operands` says). ``scoring="sigmoid"`` routes
+    as DeepSeek-V3 does (``plain.route``): the choice on the experts'
+    sigmoid scores plus ``bias`` (or None), the weights their unbiased
+    scores times ``scale``. ``sel`` (N, top_k) int32 on the device, or
+    None: where the chosen experts are written (else the call's scratch).
+    Returns ``(y (N, D) bf16, Routing)``, the routing views of the call's
+    scratch and ``sel``; the kernel's other scratch holds
+    each assignment's and shared part's row of ``silu(g) * u`` (h) and of
+    its down product (out), f32."""
+    if scoring not in ("softmax", "sigmoid"):
+        raise ValueError(f"unknown scoring {scoring!r}: softmax or sigmoid")
+    want = (x.shape[0], top_k)
+    if sel is not None and (sel.shape != want or sel.dtype != torch.int32
+                            or not sel.is_contiguous()
+                            or sel.device != x.device):
+        raise ValueError(f"sel must be a contiguous {want} int32 on "
+                         f"{x.device}")
+    check_operands(x, router, experts, shared, shared_gate, top_k, bias)
     n, d = x.shape
     e, _, f = experts["w_gate"].shape
     parts = 0 if shared is None else shared["w_gate"].shape[-1] // f
     work = n * top_k + parts * n  # rows of h and out: assignments, shared
     logits, gates, sg, h, out = _scratch(
         [n * e, n * top_k, n, work * f, work * d], torch.float32, x.device)
-    sel, counts = _scratch([n * top_k, e], torch.int32, x.device)
+    chosen, counts = _scratch([n * top_k, e], torch.int32, x.device)
+    if sel is not None:
+        chosen = sel
     y = torch.empty((n, d), dtype=x.dtype, device=x.device)
     sh = shared or {}
     ptr = (lambda t: None if t is None else t.data_ptr())
     lib = _lib()
     with tracing.span("moe_decode.launch"), _profiled("moe_decode.launch"):
         code = lib.moe_decode_launch(
-            x.data_ptr(), router.data_ptr(), ptr(shared_gate),
+            x.data_ptr(), router.data_ptr(), ptr(shared_gate), ptr(bias),
             experts["w_gate"].data_ptr(), experts["w_up"].data_ptr(),
             experts["w_down"].data_ptr(), ptr(sh.get("w_gate")),
             ptr(sh.get("w_up")), ptr(sh.get("w_down")), y.data_ptr(),
             logits.data_ptr(), gates.data_ptr(), sg.data_ptr(),
-            sel.data_ptr(), counts.data_ptr(), h.data_ptr(), out.data_ptr(),
+            chosen.data_ptr(), counts.data_ptr(), h.data_ptr(),
+            out.data_ptr(),
             n, d, f, e, top_k, parts, int(norm_topk_prob),
+            int(scoring == "sigmoid"), scale,
             torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(lib, "_moe_decode", code)
     tracing.count("launch._moe_decode")
-    return y, Routing(logits.view(n, e), sel.view(n, top_k),
+    return y, Routing(logits.view(n, e), chosen.view(n, top_k),
                       gates.view(n, top_k), sg, counts)

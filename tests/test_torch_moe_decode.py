@@ -285,3 +285,94 @@ def test_cpu_layer_never_calls_the_wrapper(monkeypatch):
         x @ lp["shared_gate"]) * L.mlp(x, lp["shared"], "silu")
     assert torch.equal(got, want)
     assert tracing.counters().get("launch._moe_decode", 0) == before
+
+
+MOONLIGHT = get_config("moonlight_16b_a3b")
+
+
+def sigmoid_layer(cfg, dtype, seed=0) -> dict:
+    """One DeepSeek-V3 MoE layer of ``cfg`` in ``dtype``: the router of
+    spread 0.02, a correction bias of spread 0.05, two shared experts."""
+    lp = layer_of(cfg, dtype, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    lp.pop("shared_gate")
+    lp["router"] = torch.empty_like(lp["router"]).normal_(0, 0.02,
+                                                          generator=g)
+    lp["router_bias"] = torch.empty((cfg.n_experts,), dtype=dtype).normal_(
+        0, 0.05, generator=g)
+    return lp
+
+
+@pytest.fixture(scope="module")
+def moonlight_layer():
+    return sigmoid_layer(MOONLIGHT, torch.bfloat16)
+
+
+@pytest.mark.parametrize("n", [1, 4, 16])
+@pytest.mark.parametrize("case", ["tiny_f32", "tiny_bf16", "published_bf16"])
+@torch.no_grad()
+def test_plain_sigmoid_routing_equals_the_grouped_path(case, n, request):
+    """DeepSeek-V3's routing on both: the choice on sigmoid scores plus the
+    bias, the unbiased scores renormalised and times 2.446, two ungated
+    shared experts; the same routing as ``moe.top_k`` on the f32 logits,
+    the outputs as in :func:`test_plain_equals_the_grouped_path`."""
+    if case == "published_bf16":
+        cfg, dtype = MOONLIGHT, torch.bfloat16
+        lp = request.getfixturevalue("moonlight_layer")
+    else:
+        dtype = torch.float32 if case == "tiny_f32" else torch.bfloat16
+        cfg = dataclasses.replace(MOONLIGHT.reduced(), n_experts=16, top_k=6)
+        lp = sigmoid_layer(cfg, dtype)
+    x = rows(n, cfg.d_model, dtype).reshape(n, 1, cfg.d_model)
+    want = moe.moe_ffn(x, lp, cfg).reshape(n, cfg.d_model).float()
+    got, routing = plain.moe_decode_plain(
+        x.reshape(n, -1), lp["router"], lp["experts"], lp["shared"], None,
+        cfg.top_k, cfg.norm_topk_prob, scoring="sigmoid",
+        bias=lp["router_bias"], scale=cfg.routed_scaling_factor)
+    sel, gates = moe.top_k(moe.router_logits(x, lp["router"], cfg), cfg,
+                           lp["router_bias"])
+    assert torch.equal(routing.sel.long(), sel.reshape(n, -1))
+    torch.testing.assert_close(routing.gates, gates.reshape(n, -1),
+                               rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(routing.gates.sum(-1), torch.full(
+        (n,), cfg.routed_scaling_factor), rtol=1e-6, atol=1e-6)
+    assert torch.equal(routing.shared_gate, torch.ones(n))
+    err = float((got.float() - want).norm() / want.norm())
+    assert err < (1e-6 if dtype == torch.float32 else 1e-2), err
+
+
+@torch.no_grad()
+def test_the_bias_chooses_and_the_scores_weigh():
+    """A bias that lifts expert 5 far above the rest puts it first in every
+    row, yet weighs it by its unbiased score; without the bias, the choice
+    is the scores' own top-k."""
+    cfg = dataclasses.replace(MOONLIGHT.reduced(), n_experts=16, top_k=6)
+    lp = sigmoid_layer(cfg, torch.float32)
+    x = rows(4, cfg.d_model, torch.float32)
+    bias = torch.zeros(cfg.n_experts)
+    bias[5] = 10.0
+    kw = dict(scoring="sigmoid", scale=cfg.routed_scaling_factor)
+    r = plain.route(x, lp["router"], None, cfg.top_k, True, bias=bias, **kw)
+    scores = torch.sigmoid(x @ lp["router"])
+    assert (r.sel[:, 0] == 5).all()
+    norm = torch.gather(scores, 1, r.sel.long()).sum(-1)
+    torch.testing.assert_close(r.gates[:, 0], scores[:, 5] / norm
+                               * cfg.routed_scaling_factor)
+    free = plain.route(x, lp["router"], None, cfg.top_k, True, **kw)
+    assert torch.equal(free.sel.long(),
+                       torch.topk(scores, cfg.top_k, dim=-1)[1])
+    assert torch.equal(free.logits, x @ lp["router"])
+
+
+def test_wrapper_refuses_a_bad_bias_or_record():
+    cfg = dataclasses.replace(MOONLIGHT.reduced(), n_experts=16, top_k=6)
+    lp = sigmoid_layer(cfg, torch.bfloat16)
+    x = rows(2, cfg.d_model, torch.bfloat16)
+    args = (x, lp["router"], lp["experts"], lp["shared"], None, 6, True)
+    with pytest.raises(ValueError, match="bias shape"):
+        mk.moe_decode(*args, scoring="sigmoid", bias=lp["router_bias"][:8])
+    with pytest.raises(ValueError, match="scoring"):
+        mk.moe_decode(*args, scoring="softplus")
+    with pytest.raises(ValueError, match="sel must be"):
+        mk.moe_decode(*args, scoring="sigmoid", bias=lp["router_bias"],
+                      sel=torch.zeros((2, 5), dtype=torch.int32))

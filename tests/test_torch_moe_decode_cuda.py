@@ -4,8 +4,11 @@ bf16, 4 rows) under even routing, under all rows on the same 4 experts and
 under 16 distinct ones, and at 1 and 16 rows; experts no row chose poisoned
 with NaN leave the output unchanged; the routing launch's choices are
 ``moe.top_k``'s on its own logits, ties included; two runs give the same
-bits; and a Server's eager decode step calls the kernel once a layer, its
-prefill never. ``python -m pytest -q -m gpu
+bits; a Server's eager decode step calls the kernel once a layer, its
+prefill never; the softmax routing's outputs are the stored ones
+(``_moe_decode_golden.py``), bit for bit; and at Moonlight-16B-A3B's widths,
+for 1, 4 and 16 rows, the sigmoid routing with its correction bias and two
+ungated shared experts equals plain's. ``python -m pytest -q -m gpu
 tests/test_torch_moe_decode_cuda.py``; skips without a card."""
 
 import dataclasses
@@ -184,3 +187,67 @@ def test_a_step_calls_the_kernel_once_a_layer():
     for i in range(3):
         server.step(state)
         assert count() == before + 24 * (i + 1)
+
+
+@torch.no_grad()
+def test_softmax_routing_is_unchanged_bit_for_bit():
+    """Qwen1.5-MoE-A2.7B's routing and outputs on the kernel path, for 1, 4
+    and 16 rows, are the stored ones (``tests/_moe_decode_golden.py``,
+    written by the kernel before its sigmoid mode), bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    import numpy as np
+
+    import _moe_decode_golden as golden
+
+    want = np.load(golden.GOLDEN)
+    got = golden.outputs(mk.moe_decode)
+    assert sorted(got) == sorted(want.files)
+    for name, value in got.items():
+        assert np.array_equal(value, want[name]), name
+
+
+def _moonlight_layer(seed: int):
+    """One MoE layer at Moonlight-16B-A3B's widths, bf16: 64 experts of
+    1408, two shared experts (2816), a correction bias of spread 0.05."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d, e, f = 2048, 64, 1408
+
+    def normal(*shape, std=0.02):
+        return (torch.randn(shape, generator=gen, device="cuda") * std
+                ).to(torch.bfloat16)
+    return {"router": normal(d, e),
+            "experts": {"w_gate": normal(e, d, f), "w_up": normal(e, d, f),
+                        "w_down": normal(e, f, d)},
+            "shared": {"w_gate": normal(d, 2 * f), "w_up": normal(d, 2 * f),
+                       "w_down": normal(2 * f, d)},
+            "router_bias": normal(e, std=0.05)}
+
+
+@pytest.mark.parametrize("n", [1, 4, 16])
+@torch.no_grad()
+def test_sigmoid_routing_at_moonlight_widths_equals_plain(n):
+    """DeepSeek-V3's routing (sigmoid scores, the choice on score + bias,
+    the unbiased scores renormalised and times 2.446) with two ungated
+    shared experts: the kernel's choices are ``moe.top_k``'s on its own
+    logits, its weights theirs, and its output plain's."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    cfg = get_config("moonlight_16b_a3b")
+    lp = _moonlight_layer(60 + n)
+    x = torch.randn((n, 2048), device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(70 + n)).to(torch.bfloat16)
+    kw = dict(scoring="sigmoid", bias=lp["router_bias"],
+              scale=cfg.routed_scaling_factor)
+    args = (lp["router"], lp["experts"], lp["shared"], None, cfg.top_k, True)
+    got, r = mk.moe_decode(x, *args, **kw)
+    want, wr = plain.moe_decode_plain(x, *args, **kw)
+    sel, gates = moe.top_k(r.logits, cfg, lp["router_bias"])
+    torch.cuda.synchronize()
+    assert torch.equal(r.sel.long(), sel)
+    torch.testing.assert_close(r.gates, gates, rtol=1e-6, atol=1e-6)
+    assert torch.equal(r.sel, wr.sel) and torch.equal(r.counts, wr.counts)
+    torch.testing.assert_close(r.logits, wr.logits, rtol=1e-4, atol=1e-4)
+    assert (r.gates.sum(1) - cfg.routed_scaling_factor).abs().max() < 1e-5
+    err = float((got.float() - want.float()).norm() / want.float().norm())
+    assert err < 1e-3, err
