@@ -350,6 +350,10 @@ REPLACES = {
     "_moe_decode": "none: the JAX package's MoE layer is XLA's einsums "
                    "(src/repro/models/moe.py)",
     "_mla_decode": "none: the JAX package has no latent attention",
+    "_decode_norm": "none: the JAX package's residual adds and RMSNorm are "
+                    "XLA's fusions (src/repro/models/layers.py rms_norm)",
+    "_decode_rope": "none: the JAX package's RoPE and cache writes are "
+                    "XLA's fusions (src/repro/models/layers.py apply_rope)",
 }
 SOURCE = {
     "_acc_kernel": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -362,6 +366,8 @@ SOURCE = {
     "_decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
     "_moe_decode": "src/repro_torch/kernels/csrc/moe_decode.cu",
     "_mla_decode": "src/repro_torch/kernels/csrc/mla_decode.cu",
+    "_decode_norm": "src/repro_torch/kernels/csrc/decode_norm.cu",
+    "_decode_rope": "src/repro_torch/kernels/csrc/decode_rope.cu",
 }
 
 
@@ -592,6 +598,189 @@ def moe_decode_row(timer) -> dict:
     del lp, args, x, x3
     torch.cuda.empty_cache()
     return r
+
+
+def decode_norm_rows(timer) -> list[dict]:
+    """Phase 5's rows of the decode-step norm kernel at the decode cells'
+    shapes: the residual add and RMSNorm of 4 (Qwen1.5-MoE) and 16
+    (Moonlight) rows of 2048 in bf16. The kernel against its plain version
+    (the sum bit for bit, the norm within a bf16 step, or it fails), then
+    the kernel, the plain version (the ten eager launches it replaces) and
+    ``torch.nn.functional.rms_norm`` of the sum (one PyTorch call, the
+    yardstick, which the port never calls), each timed by ``timer``, and
+    the bound: x, the branch and the scale read, the sum and the norm
+    written, at the HBM rate."""
+    import torch
+    import torch.nn.functional as F
+    from _torch_decode_helpers import bf16_steps
+
+    from repro_torch.kernels.decode_norm import kernel as nk
+    from repro_torch.kernels.decode_norm import plain
+
+    out = []
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    for rows, cell in ((4, "Qwen1.5-MoE"), (16, "Moonlight")):
+        d, eps = 2048, 1e-6
+        x, y = (torch.randn((rows, 1, d), generator=g, device="cuda")
+                .bfloat16() for _ in range(2))
+        scale = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")
+                 ).bfloat16()
+        s, got = nk.decode_norm(x, y, scale, eps)
+        want_s, want = plain.decode_norm_plain(x, y, scale, eps)
+        torch.cuda.synchronize()
+        steps = int(bf16_steps(got, want).max())
+        if not torch.equal(s, want_s) or steps > 1:
+            raise RuntimeError(f"_decode_norm: {steps} bf16 steps from its "
+                               f"plain version")
+        nbytes = 2 * (5 * rows * d + d)
+        r = {"name": "_decode_norm", "route": "cuda",
+             "source": SOURCE["_decode_norm"],
+             "replaces": REPLACES["_decode_norm"], "launches": 0,
+             "max_abs_err": float((got.float() - want.float()).abs().max()),
+             "ms": timer(nk.decode_norm, (x, y, scale, eps)) * 1e3,
+             "plain_ms": timer(plain.decode_norm_plain,
+                               (x, y, scale, eps)) * 1e3,
+             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+             "library_ms": timer(lambda t: F.rms_norm(t, (d,), scale, eps),
+                                 (s,)) * 1e3,
+             "workload": f"{cell} decode cell batch {rows}, width {d}",
+             "block": [rows]}
+        print(f"  _decode_norm {r['workload']}: kernel {r['ms']*1e3:.2f} us, "
+              f"plain {r['plain_ms']*1e3:.2f} us, F.rms_norm "
+              f"{r['library_ms']*1e3:.2f} us, bound {r['bound_ms']*1e3:.3f} "
+              f"us (bytes), {100 * r['bound_ms'] / r['ms']:.2f} % of it; "
+              f"{steps} bf16 step(s) at most from plain")
+        out.append(r)
+    return out
+
+
+def decode_rope_rows(timer) -> list[dict]:
+    """Phase 5's rows of the decode-step attention prologue kernel at the
+    decode cells' shapes, position 4104, an 8192-slot bf16 cache: GQA at
+    Qwen1.5-MoE's (4 rows, 16 heads of 128, q/k/v biases, theta 1e6) and
+    MLA at Moonlight's (16 rows, 16 heads of 128 + 64, a latent row of 512
+    + 64, theta 5e4). The kernel against its plain version (q and the
+    cache bit for bit; the latent row's norm within a bf16 step, or it
+    fails), then the kernel, the plain version and the eager chain of the
+    port's parent (``layers.apply_rope`` and ``index_copy_``, the
+    yardstick; for MLA ``mla.project``, ``mla.write_row`` and the query's
+    ``cat``), each timed by ``timer``, and the bound: the projections,
+    biases and norm read, q and the cache row written, at the HBM rate."""
+    import torch
+    from _torch_decode_helpers import bf16_steps
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_rope import kernel as rk
+    from repro_torch.kernels.decode_rope import plain
+    from repro_torch.models import layers as L
+    from repro_torch.models import mla
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    t, at = 8192, 4104
+    pos = torch.tensor(at, dtype=torch.int32, device="cuda")
+
+    def normal(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * std
+                ).bfloat16()
+
+    out = []
+    cfg = get_config("qwen1_5_moe_a2_7b")
+    b, h, d = 4, cfg.n_heads, cfg.head_dim
+    q, k, v = normal(b, 1, h * d), normal(b, 1, h * d), normal(b, 1, h * d)
+    bias = (normal(h * d, std=0.02), normal(h * d, std=0.02),
+            normal(h * d, std=0.02))
+    kc, vc = normal(b, t, h, d), normal(b, t, h, d)
+    kp, vp = kc.clone(), vc.clone()
+    got = rk.decode_rope(q, k, v, kc, vc, pos, cfg.rope_theta, bias)
+    want = plain.decode_rope_plain(q, k, v, kp, vp, at, cfg.rope_theta, bias)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(kc, kp)
+            and torch.equal(vc, vp)):
+        raise RuntimeError("_decode_rope (GQA) differs from its plain "
+                           "version")
+
+    def eager(q, k, v, kc, vc, pos):
+        q, k, v = (y + w for y, w in zip((q, k, v), bias))
+        q, k, v = (y.view(b, 1, h, d) for y in (q, k, v))
+        positions = pos.expand(b, 1)
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+        slots = (torch.clamp(pos, max=t - 1)
+                 + torch.arange(1, device="cuda")).long()
+        kc.index_copy_(1, slots, k)
+        vc.index_copy_(1, slots, v)
+        return q
+
+    nbytes = 2 * (2 * (3 * b * h * d + 3 * h * d) + 2 * b * h * d)
+    out.append({
+        "name": "_decode_rope", "route": "cuda",
+        "source": SOURCE["_decode_rope"], "replaces": REPLACES["_decode_rope"],
+        "launches": 0, "max_abs_err": 0.0,
+        "ms": timer(rk.decode_rope, (q, k, v, kc, vc, pos, cfg.rope_theta,
+                                     bias)) * 1e3,
+        "plain_ms": timer(plain.decode_rope_plain,
+                          (q, k, v, kp, vp, at, cfg.rope_theta, bias)) * 1e3,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": timer(eager, (q, k, v, kp, vp, pos)) * 1e3,
+        "workload": f"Qwen1.5-MoE decode cell batch {b}, GQA {h} heads of "
+                    f"{d}, pos {at}", "block": [b, 2 * h]})
+    del kc, vc, kp, vp
+
+    cfg = get_config("moonlight_16b_a3b")
+    b, h, r = 16, cfg.n_heads, cfg.kv_lora_rank
+    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q, kv = normal(b, 1, h * (nope + rope)), normal(b, 1, r + rope)
+    norm = (1 + 0.1 * torch.randn(r, generator=g, device="cuda")).bfloat16()
+    q_lat = normal(h, b, r).transpose(0, 1)
+    cache = normal(b, t, r + rope)
+    mine = cache.clone()
+    got = rk.decode_rope_mla(q, kv, norm, q_lat, cache, pos, cfg.rope_theta,
+                             nope, mla.KV_NORM_EPS)
+    want = plain.decode_rope_mla_plain(q, kv, norm, q_lat, mine, at,
+                                       cfg.rope_theta, nope, mla.KV_NORM_EPS)
+    torch.cuda.synchronize()
+    steps = int(bf16_steps(cache[:, at, :r], mine[:, at, :r]).max())
+    if not (torch.equal(got, want) and torch.equal(cache[..., r:],
+                                                   mine[..., r:])
+            and steps <= 1):
+        raise RuntimeError(f"_decode_rope (MLA) differs from its plain "
+                           f"version ({steps} bf16 steps in the norm)")
+
+    def eager_mla(q, kv, cache, pos):
+        q_pe = q.view(b, 1, h, -1)[..., nope:]
+        positions = pos.expand(b, 1)
+        c_kv = mla.kv_norm(kv[..., :r], norm)
+        k_pe = mla.rope(kv[..., None, r:], positions, cfg.rope_theta)
+        mla.write_row(cache, torch.cat([c_kv, k_pe[..., 0, :]], dim=-1), pos)
+        q_pe = mla.rope(q_pe, positions, cfg.rope_theta)
+        return torch.cat([q_lat, q_pe[:, 0]], dim=-1)[:, None]
+
+    nbytes = 2 * (b * h * (nope + rope) + b * (r + rope) + r + b * h * r
+                  + b * h * (r + rope) + b * (r + rope))
+    out.append({
+        "name": "_decode_rope", "route": "cuda",
+        "source": SOURCE["_decode_rope"], "replaces": REPLACES["_decode_rope"],
+        "launches": 0, "max_abs_err": float(
+            (cache[:, at].float() - mine[:, at].float()).abs().max()),
+        "ms": timer(rk.decode_rope_mla, (q, kv, norm, q_lat, cache, pos,
+                                         cfg.rope_theta, nope,
+                                         mla.KV_NORM_EPS)) * 1e3,
+        "plain_ms": timer(plain.decode_rope_mla_plain,
+                          (q, kv, norm, q_lat, mine, at, cfg.rope_theta,
+                           nope, mla.KV_NORM_EPS)) * 1e3,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": timer(eager_mla, (q, kv, mine, pos)) * 1e3,
+        "workload": f"Moonlight decode cell batch {b}, MLA {h} heads, "
+                    f"latent {r} + {rope}, pos {at}", "block": [b, h + 1]})
+    for row in out:
+        print(f"  _decode_rope {row['workload']}: kernel "
+              f"{row['ms']*1e3:.2f} us, plain {row['plain_ms']*1e3:.2f} us, "
+              f"eager chain {row['library_ms']*1e3:.2f} us, bound "
+              f"{row['bound_ms']*1e3:.3f} us (bytes), "
+              f"{100 * row['bound_ms'] / row['ms']:.2f} % of it")
+    del cache, mine
+    torch.cuda.empty_cache()
+    return out
 
 
 def mla_decode_row(timer) -> dict:
@@ -3222,6 +3411,9 @@ def main() -> int:
     rows.append(da_rows[-1])
     da_rows.append(mla_decode_row(timer))
     rows.append(da_rows[-1])
+    for r in decode_norm_rows(timer) + decode_rope_rows(timer):
+        da_rows.append(r)
+        rows.append(r)
 
     # ---------------------------------------------------------------- 6 ----
     phase(f"6. serving path: MobileLLM-125M unreduced through Server, "

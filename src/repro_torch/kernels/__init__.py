@@ -123,13 +123,15 @@ def baseline(workload: Workload):
 # (``launch.<name>`` in :mod:`repro_torch.tracing`) give it, and
 # ``_qmm_kernel.wgmma``: those of ``_qmm_kernel``'s launches that took its
 # wgmma loop. ``_decode_attention`` (``decode_attention/kernel.py``),
-# ``_moe_decode`` (``moe_decode/kernel.py``, a call of its four launches) and
-# ``_mla_decode`` (``mla_decode/kernel.py``, a call of its two) are the
-# serving path's own, outside the tuner's op families.
+# ``_moe_decode`` (``moe_decode/kernel.py``, a call of its four launches),
+# ``_mla_decode`` (``mla_decode/kernel.py``, a call of its two),
+# ``_decode_norm`` (``decode_norm/kernel.py``) and ``_decode_rope``
+# (``decode_rope/kernel.py``, either mode) are the serving path's own,
+# outside the tuner's op families.
 KERNEL_NAMES = ("_acc_kernel", "_noacc_kernel", "_qmm_kernel",
                 "_qmm_kernel.wgmma", "_gemv_kernel", "_gemv_noacc_kernel",
                 "_vmacc_kernel", "_fa_kernel", "_decode_attention",
-                "_moe_decode", "_mla_decode")
+                "_moe_decode", "_mla_decode", "_decode_norm", "_decode_rope")
 
 
 def launch_counts() -> dict[str, int]:

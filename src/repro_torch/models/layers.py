@@ -6,9 +6,11 @@ Parameters are f32 ("master" precision); compute casts to the config dtype
 projections are ``@`` and its attention the chunked online softmax of
 :func:`_sdpa`, in plain PyTorch: the port's tuned CUDA kernels are reached
 through dispatch and tuning (``core/dispatch.py``), not from inside the
-model, as in the reference. One kernel is the exception: on the card, one
-query a row against a KV cache goes to the decode-attention kernel
-(``kernels/decode_attention``), called here outside the tuner's op
+model, as in the reference. A decode step's kernels are the exception: on
+the card, one query a row against a KV cache goes to the decode-attention
+kernel (``kernels/decode_attention``), its projections to the attention
+prologue (``kernels/decode_rope``) and a residual add with the norm after
+it to ``kernels/decode_norm``, called here outside the tuner's op
 families, because a step captured as a CUDA graph must read its position
 on the device and cannot go through a host-side dispatch.
 
@@ -29,6 +31,8 @@ import torch.nn.functional as F
 from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.decode_attention import kernel as decode_kernel
+from repro_torch.kernels.decode_norm import kernel as norm_kernel
+from repro_torch.kernels.decode_rope import kernel as rope_kernel
 
 # ----------------------------------------------------- activation sharding --
 # The reference pins the batch sharding of activations GSPMD would otherwise
@@ -427,6 +431,35 @@ def rms_norm(x, scale, eps: float = 1e-6):
     var = torch.mean(x * x, dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps) * scale.float()
     return _whole_sequence(out.to(dtype))
+
+
+def _norm_kernel_applies(x, y, scale) -> bool:
+    """Whether a residual add and the norm after it take the decode-step
+    norm kernel (``kernels/decode_norm``): one position a row (x (B, 1,
+    D)), CUDA tensors that are not DTensors, no gradient to keep, x, the
+    branch ``y`` (or None) and the scale in bf16, and a width the kernel
+    takes. Elsewhere ``x + y`` and :func:`rms_norm` run. Where the gate is
+    open, the wrapper's own checks (contiguity, alignment) raise rather
+    than change path."""
+    tensors = [x, scale] + ([] if y is None else [y])
+    if x.dim() != 3 or x.shape[1] != 1 or x.device.type != "cuda" or any(
+            _is_dtensor(t) for t in tensors):
+        return False
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return False
+    return (all(t.dtype == torch.bfloat16 for t in tensors)
+            and norm_kernel.takes(x.shape[-1]))
+
+
+def add_rms_norm(x, y, scale, eps: float = 1e-6):
+    """The residual stream ``x + y`` (x itself where ``y`` is None) and its
+    :func:`rms_norm`: a decode step's rows on the card in one launch
+    (:func:`_norm_kernel_applies`), the same arithmetic up to the order of
+    the f32 sum of squares; elsewhere the two ops as they are."""
+    if _norm_kernel_applies(x, y, scale):
+        return norm_kernel.decode_norm(x, y, scale, eps)
+    s = x if y is None else x + y
+    return s, rms_norm(s, scale, eps)
 
 
 def layer_norm(x, scale, bias, eps: float = 1e-5):
@@ -844,32 +877,69 @@ def _decode_kernel_applies(q, k_cache, v_cache, window: int) -> bool:
             and window != 0)
 
 
+_QKV_BIASES = ("bq", "bk", "bv")
+
+
+def _prologue_kernel_applies(x, p, cfg: ArchConfig, k_cache,
+                             v_cache) -> bool:
+    """Whether one query a row on a cache that is neither ring nor sliced
+    takes the attention prologue kernel (``kernels/decode_rope``) from its
+    projections to q and the cache write: CUDA tensors that are not
+    DTensors, no gradient to keep, x, the projections' weights and biases
+    and the cache in bf16, a head dim the kernel takes and no mrope
+    sections. Elsewhere the bias adds, :func:`apply_rope` and the cache
+    write run as ops. Where the gate is open, the wrapper's own checks
+    raise rather than change path."""
+    if x.shape[1] != 1 or x.device.type != "cuda" or cfg.mrope_sections:
+        return False
+    tensors = [x, k_cache, v_cache, p["wq"], p["wk"], p["wv"]]
+    if cfg.qkv_bias:
+        tensors += [p[name] for name in _QKV_BIASES]
+    if any(_is_dtensor(t) for t in tensors):
+        return False
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return False
+    return (all(t.dtype == torch.bfloat16 for t in tensors)
+            and rope_kernel.takes(cfg.head_dim))
+
+
 def _attention_decode(x, p, cfg: ArchConfig, k_cache, v_cache, pos,
                       window: int, mrope_positions, static_window, ring):
     b, s, _ = x.shape
-    q, k, v = _qkv(x, p, cfg)
-    on_device = torch.is_tensor(pos)
-    positions = (pos.expand(b, s) if on_device else
-                 torch.full((b, s), pos, dtype=torch.int32, device=x.device))
-    if cfg.mrope_sections and mrope_positions is not None:
-        q = apply_mrope(q, mrope_positions, cfg.rope_theta, cfg.mrope_sections)
-        k = apply_mrope(k, mrope_positions, cfg.rope_theta, cfg.mrope_sections)
-    else:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
     t = k_cache.shape[1]
-    # dynamic_update_slice's clamp: the write stays inside the cache
-    if on_device:
-        slots = (torch.clamp(pos, max=t - s)
-                 + torch.arange(s, device=x.device)).long()
-        k_cache.index_copy_(1, slots, k.to(k_cache.dtype))
-        v_cache.index_copy_(1, slots, v.to(v_cache.dtype))
-    else:
-        write_pos = min(pos % t if ring else pos, t - s)
-        k_cache[:, write_pos:write_pos + s] = k.to(k_cache.dtype)
-        v_cache[:, write_pos:write_pos + s] = v.to(v_cache.dtype)
     sliced = (DECODE_WINDOW_SLICING and static_window is not None
               and 0 < static_window < t)
+    on_device = torch.is_tensor(pos)
+    if not (ring or sliced) and _prologue_kernel_applies(x, p, cfg, k_cache,
+                                                         v_cache):
+        q, k, v = (x @ p[w] for w in ("wq", "wk", "wv"))
+        bias = (tuple(p[name] for name in _QKV_BIASES) if cfg.qkv_bias
+                else None)
+        q = rope_kernel.decode_rope(q, k, v, k_cache, v_cache, pos,
+                                    cfg.rope_theta, bias)
+    else:
+        q, k, v = _qkv(x, p, cfg)
+        positions = (pos.expand(b, s) if on_device else
+                     torch.full((b, s), pos, dtype=torch.int32,
+                                device=x.device))
+        if cfg.mrope_sections and mrope_positions is not None:
+            q = apply_mrope(q, mrope_positions, cfg.rope_theta,
+                            cfg.mrope_sections)
+            k = apply_mrope(k, mrope_positions, cfg.rope_theta,
+                            cfg.mrope_sections)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        # dynamic_update_slice's clamp: the write stays inside the cache
+        if on_device:
+            slots = (torch.clamp(pos, max=t - s)
+                     + torch.arange(s, device=x.device)).long()
+            k_cache.index_copy_(1, slots, k.to(k_cache.dtype))
+            v_cache.index_copy_(1, slots, v.to(v_cache.dtype))
+        else:
+            write_pos = min(pos % t if ring else pos, t - s)
+            k_cache[:, write_pos:write_pos + s] = k.to(k_cache.dtype)
+            v_cache[:, write_pos:write_pos + s] = v.to(v_cache.dtype)
     if not (ring or sliced) and _decode_kernel_applies(q, k_cache, v_cache,
                                                        window):
         out = decode_kernel.decode_attention(q, k_cache, v_cache, pos, window)

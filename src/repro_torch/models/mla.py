@@ -27,7 +27,10 @@ query's nope dims taken into the latent space through each head's W_UK
 (``mla.absorb``), attention of the 16 heads over the latent rows as cached
 (``kernels/mla_decode`` on a card, :func:`absorbed` elsewhere), then each
 head's W_UV and ``wo`` (``mla.out``). The two forms are the same arithmetic
-up to where the products are rounded.
+up to where the products are rounded. On a card a decode step's kv_norm,
+RoPE, latent row write and query (q_lat ‖ q_pe) are one launch of the
+attention prologue kernel (``kernels/decode_rope``), after the absorption
+of the unrotated q_nope.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.decode_rope import kernel as rope_kernel
 from repro_torch.kernels.mla_decode import kernel as decode_kernel
 from repro_torch.models import layers as L
 
@@ -167,6 +171,32 @@ def _decode_kernel_applies(q, cache) -> bool:
             and decode_kernel.takes(q.shape[2], q.shape[3]))
 
 
+def _prologue_kernel_applies(x, p, cfg: ArchConfig, cache) -> bool:
+    """Whether one query a row takes the attention prologue kernel
+    (``kernels/decode_rope``, its latent mode) from the projections to the
+    latent row and the query: CUDA tensors that are not DTensors, no
+    gradient to keep, x, the attention's weights and the cache in bf16, at
+    latent widths the kernel takes. Elsewhere :func:`project`,
+    :func:`write_row` and the ``cat`` of the query run as ops. Where the
+    gate is open, the wrapper's own checks raise rather than change
+    path."""
+    tensors = [x, cache, p["wq"], p["wkv_a"], p["kv_norm"], p["wkv_b"]]
+    if x.shape[1] != 1 or x.device.type != "cuda" or any(
+            L._is_dtensor(t) for t in tensors):
+        return False
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return False
+    return (all(t.dtype == torch.bfloat16 for t in tensors)
+            and rope_kernel.takes_mla(cfg.kv_lora_rank, cfg.qk_rope_head_dim))
+
+
+def _absorb(q_nope, w_uk):
+    """Each head's q_nope (B, 1, H, nope) through its W_UK (r, H, nope):
+    (B, H, r), a view of the (H, B, r) product."""
+    return torch.matmul(q_nope[:, 0].transpose(0, 1),
+                        w_uk.permute(1, 2, 0)).transpose(0, 1)
+
+
 def write_row(cache, row, pos) -> None:
     """The step's latent rows (B, 1, W) into ``cache`` (B, T, W) at ``pos``
     (an int, or a 0-dim int32 tensor on the device: its write is an
@@ -188,17 +218,25 @@ def attention_decode(x, p, cfg: ArchConfig, cache, pos):
     step captured as a CUDA graph feeds it). Returns (B, 1, D)."""
     with tracing.span("attention.decode"):
         b, s, _ = x.shape
-        positions = (pos.expand(b, s) if torch.is_tensor(pos) else
-                     torch.full((b, s), int(pos), dtype=torch.int32,
-                                device=x.device))
-        q_nope, q_pe, latent = project(x, p, cfg, positions)
-        write_row(cache, latent, pos)
         w_uk, w_uv = _heads_of(p["wkv_b"].to(x.dtype), cfg)
-        with tracing.span("mla.absorb"):
-            # (H, B, nope) @ (H, nope, r): each head's q_nope through W_UK
-            q_lat = torch.matmul(q_nope[:, 0].transpose(0, 1),
-                                 w_uk.permute(1, 2, 0)).transpose(0, 1)
-            q = torch.cat([q_lat, q_pe[:, 0]], dim=-1)[:, None]
+        nope = cfg.qk_nope_head_dim
+        if _prologue_kernel_applies(x, p, cfg, cache):
+            q, kv = x @ p["wq"], x @ p["wkv_a"]
+            with tracing.span("mla.absorb"):
+                q_lat = _absorb(q.view(b, s, cfg.n_heads, -1)[..., :nope],
+                                w_uk)
+                q = rope_kernel.decode_rope_mla(
+                    q, kv, p["kv_norm"], q_lat, cache, pos, cfg.rope_theta,
+                    nope, KV_NORM_EPS)
+        else:
+            positions = (pos.expand(b, s) if torch.is_tensor(pos) else
+                         torch.full((b, s), int(pos), dtype=torch.int32,
+                                    device=x.device))
+            q_nope, q_pe, latent = project(x, p, cfg, positions)
+            write_row(cache, latent, pos)
+            with tracing.span("mla.absorb"):
+                q = torch.cat([_absorb(q_nope, w_uk), q_pe[:, 0]],
+                              dim=-1)[:, None]
         scale = softmax_scale(cfg)
         if _decode_kernel_applies(q, cache):
             o_lat = decode_kernel.mla_decode(q, cache, pos, scale)

@@ -456,12 +456,15 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
 @torch.no_grad()
 def decode_step(params: T.Model, cache, tokens, pos: int, cfg: ArchConfig):
     """One-token decode; the stacked cache is written in place, and, for a
-    dropless config, the experts each MoE layer chose (``experts``)."""
+    dropless config, the experts each MoE layer chose (``experts``). Each
+    residual add is taken with the norm after it (``L.add_rms_norm``: one
+    launch a pair on the card)."""
     x = L.embed(tokens, params, cfg, T.DTYPES[cfg.dtype])
     records = cache.get("experts")
     k = cfg.first_k_dense_replace
+    branch = None  # the last MLP's output, added where the next norm reads
     for i, (lp, dense) in enumerate(layer_stack(params, cfg)):
-        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        x, h = L.add_rms_norm(x, branch, lp["ln1"], cfg.norm_eps)
         if cfg.mla:
             attn_out = mla.attention_decode(h, lp["attn"], cfg,
                                             cache["latent"][i], pos)
@@ -469,12 +472,11 @@ def decode_step(params: T.Model, cache, tokens, pos: int, cfg: ArchConfig):
             attn_out, _, _ = L.attention_decode(
                 h, lp["attn"], cfg, cache["k"][i], cache["v"][i], pos,
                 cfg.window_for_layer(i))
-        x = x + attn_out
-        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x, h = L.add_rms_norm(x, attn_out, lp["ln2"], cfg.norm_eps)
         record = None if dense or records is None else records[i - k]
-        x = x + _ffn(h, lp, cfg, dense, record)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return L.unembed(x, params, cfg)[:, 0], cache
+        branch = _ffn(h, lp, cfg, dense, record)
+    _, h = L.add_rms_norm(x, branch, params["final_norm"], cfg.norm_eps)
+    return L.unembed(h, params, cfg)[:, 0], cache
 
 
 @torch.no_grad()

@@ -12,6 +12,8 @@ from _decode_attention_cases import (CASES, bf16_bound, golden, jax_golden,
                                      jax_sdpa_decode, operands,
                                      rounding_case)
 
+from _torch_decode_helpers import OnCard as _OnCard
+
 from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attention import kernel as dk
 from repro_torch.kernels.decode_attention import plain
@@ -184,21 +186,6 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(args, says):
     with pytest.raises(ValueError, match=says):
         dk.decode_attention(args["q"], args["k"], args["v"], args["pos"],
                             args["window"])
-
-
-class _OnCard:
-    """A CPU tensor that reports a card: what the gate reads of a CUDA
-    operand."""
-
-    def __init__(self, t):
-        self.t = t
-
-    @property
-    def device(self):
-        return torch.device("cuda", 0)
-
-    def __getattr__(self, name):
-        return getattr(self.t, name)
 
 
 @pytest.mark.parametrize("case", ["applies", "cpu", "dtensor", "grad",
